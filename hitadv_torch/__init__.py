@@ -11,8 +11,9 @@ Conventions carried over from the reference:
   * the kernels of the hot path (`ops/csrc/*.cu`) are chosen by the
     tensor's device alone: a CUDA tensor launches the kernel (or raises),
     a CPU tensor runs the kernel's plain PyTorch version;
-  * entry points (`make_hit_adv`, the model constructors) run on
-    ``device="cuda"`` unless the caller asks for the CPU.
+  * entry points (`make_hit_adv`, `make_cw_perturb`, `make_cw_knn`, the
+    model constructors) run on ``device="cuda"`` unless the caller asks
+    for the CPU.
 
 The reference computes its distance and blend products in full f32, so
 TF32 is switched off for matmuls and cuDNN here, where the package starts.

@@ -1,12 +1,14 @@
-"""Victim models. Only PointNet is ported so far."""
+"""Victim models. PointNet and DGCNN are ported so far."""
 
 from typing import Dict, Type
 
 from torch import nn
 
+from hitadv_torch.models.dgcnn import DGCNN, DGCNNConfig  # noqa: F401
 from hitadv_torch.models.pointnet import PointNet
 
-_REGISTRY: Dict[str, Type[nn.Module]] = {"pointnet": PointNet}
+_REGISTRY: Dict[str, Type[nn.Module]] = {"pointnet": PointNet,
+                                         "dgcnn": DGCNN}
 
 
 def get_model(name: str) -> Type[nn.Module]:

@@ -2,7 +2,8 @@
 
 Port of `hitadv_tpu/nn/functional.py` for inference: pointwise conv
 (= linear), BN folded into the preceding linear, the STN-transform fold,
-and the fused conv + global max-pool over the max-linear kernels.
+ReLU and LeakyReLU, and the fused conv + global max-pool over the
+max-linear kernels.
 
 Parameters are mappings of tensors in the reference's layout: a linear or
 1x1-conv is ``{"w": [Cin, Cout], "b": [Cout]}``, a BN is
@@ -38,17 +39,20 @@ def _cast(x: torch.Tensor, compute_dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def linear_init(in_features: int, out_features: int, *,
-                generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
-    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias — the
-    kaiming-uniform(a=sqrt(5)) default of torch's Linear and Conv1d."""
+                generator: torch.Generator, device,
+                bias: bool = True) -> Dict[str, torch.Tensor]:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and (optional) bias —
+    the kaiming-uniform(a=sqrt(5)) default of torch's Linear and Conv1d."""
     bound = 1.0 / math.sqrt(in_features)
 
     def uniform(*shape):
         u = torch.rand(shape, generator=generator, device=device)
         return u * (2.0 * bound) - bound
 
-    return {"w": uniform(in_features, out_features),
-            "b": uniform(out_features)}
+    p = {"w": uniform(in_features, out_features)}
+    if bias:
+        p["b"] = uniform(out_features)
+    return p
 
 
 conv1x1_init = linear_init
@@ -81,6 +85,13 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     """``maximum(x, 0)``: at x == 0 the gradient splits in half, as
     jnp.maximum's does (torch.relu would give 0)."""
     return torch.maximum(x, x.new_zeros(()))
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2
+               ) -> torch.Tensor:
+    """``where(x >= 0, x, slope * x)`` (DGCNN's LeakyReLU(0.2)); the
+    gradient at 0 is 1, as the reference's."""
+    return torch.where(x >= 0, x, negative_slope * x)
 
 
 def linear(p: Params, x, compute_dtype=None) -> torch.Tensor:

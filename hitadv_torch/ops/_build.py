@@ -5,7 +5,9 @@ points, no PyTorch headers) into its own shared library under
 ``ops/_build/`` and loaded with ``ctypes``. The library name carries a
 hash of the source and the flags, so an edited source is rebuilt and a
 stale library is never loaded. `build_all` starts one ``nvcc`` per
-source, all at once, and waits for them together.
+source, all at once, and waits for them together. The shared header
+``csrc/common.cuh`` enters every library's hash, so editing it rebuilds
+the sources that include it.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 `check` raises when that is not ``cudaSuccess``.
@@ -25,14 +27,16 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-SOURCES = ("max_linear_fwd", "max_linear_dh", "gather_rows", "knn", "fps")
+SOURCES = ("max_linear_fwd", "max_linear_dh", "gather_rows", "knn", "nn",
+           "fps", "scatter_add_rows", "graph_max_pool")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # kNN and FPS select indices from distances: without contraction into
 # FMAs every product and sum rounds as the plain PyTorch version's
 # separate elementwise ops do, so both give the same bits and indices.
-EXTRA_FLAGS = {"knn": ("-fmad=false",), "fps": ("-fmad=false",)}
+EXTRA_FLAGS = {"knn": ("-fmad=false",), "nn": ("-fmad=false",),
+               "fps": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -54,6 +58,8 @@ def _command(name: str, out: Path) -> list:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += b"\0" + header.read_bytes()
     flags = " ".join(FLAGS + EXTRA_FLAGS.get(name, ())).encode()
     digest = hashlib.sha1(src + b"\0" + flags).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"

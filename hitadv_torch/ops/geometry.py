@@ -1,13 +1,16 @@
-"""Point-cloud geometry of the HiT-ADV main path.
+"""Point-cloud geometry of the ported paths.
 
-Port of the parts of `hitadv_tpu/ops/geometry.py` the flagship attack
-runs: distances, gathers, kNN, farthest point sampling, the lower median
-and the Gaussian-kernel blend. Clouds are ``[B, N, C]``.
+Port of the parts of `hitadv_tpu/ops/geometry.py` that HiT-ADV, the CW
+attacks and DGCNN run: distances, gathers and their scatter-add
+transpose, kNN (coordinate and feature space), farthest point sampling,
+the graph max-pool, the lower median and the Gaussian-kernel blend.
+Clouds are ``[B, N, C]``.
 
-`index_points`, `knn_points` and `farthest_point_sample` go through the
-hand-written kernels of `ops/kernels.py` (the kernel on a CUDA tensor,
-its plain version on a CPU tensor). The rest is plain PyTorch, as it is
-plain XLA in the reference.
+`index_points`, `knn_points`, `knn_idx`, `farthest_point_sample` and
+`graph_max_pool` go through the hand-written kernels of `ops/kernels.py`
+(the kernel on a CUDA tensor, its plain version on a CPU tensor), in both
+directions. The rest is plain PyTorch, as it is plain XLA in the
+reference.
 """
 
 from __future__ import annotations
@@ -34,9 +37,8 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _GatherRows(torch.autograd.Function):
-    """Row gather whose backward is the scatter-add. The CUDA scatter-add
-    is the `scatter_add_rows` kernel, not ported yet; the main path never
-    differentiates a gather."""
+    """Row gather whose backward is the row scatter-add (reference
+    `_gather_rows_bwd`, :227-231), both through the kernels."""
 
     @staticmethod
     def forward(ctx, x, idx):
@@ -47,17 +49,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        if g.is_cuda:
-            raise NotImplementedError(
-                "index_points backward on CUDA needs the scatter_add_rows "
-                "kernel (pallas_kernels.py:1942), which is not ported yet")
-        B, _, C = g.shape
-        out = torch.zeros((B, ctx.n_points, C), dtype=g.dtype,
-                          device=g.device)
-        flat = (idx.long() + ctx.n_points
-                * torch.arange(B, device=g.device)[:, None]).reshape(-1)
-        out.view(-1, C).index_add_(0, flat, g.reshape(-1, C))
-        return out, None
+        return K.scatter_add_rows(idx, g.contiguous(), ctx.n_points), None
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -83,8 +75,8 @@ class KNNResult(NamedTuple):
 class _KNN(torch.autograd.Function):
     """kNN with the squared-distance VJP of the reference
     (`_knn_pallas_bwd`, :359-383); the indices carry no gradient. The
-    points' share of that VJP is a scatter-add: on CUDA it waits for the
-    `scatter_add_rows` kernel, as the gather's backward does."""
+    points' share of that VJP is a row scatter-add, computed only when
+    the points need a gradient (an adv->ori Chamfer's ``ori`` does not)."""
 
     @staticmethod
     def forward(ctx, query, points, k):
@@ -96,20 +88,18 @@ class _KNN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_d, _g_idx):
         query, points, idx = ctx.saved_tensors
-        if g_d.is_cuda:
-            raise NotImplementedError(
-                "knn_points backward on CUDA needs the scatter_add_rows "
-                "kernel (pallas_kernels.py:1942), which is not ported yet")
         neighbors = index_points(points.float(), idx)        # [B, S, K, C]
         diff = query.float()[:, :, None, :] - neighbors
-        gq = torch.sum(2.0 * g_d[..., None] * diff, dim=2)
-        contrib = -2.0 * g_d[..., None] * diff
-        B, N, C = points.shape
-        flat = (idx.long() + N * torch.arange(B, device=idx.device)
-                [:, None, None]).reshape(-1)
-        gp = torch.zeros((B * N, C), dtype=torch.float32, device=idx.device)
-        gp.index_add_(0, flat, contrib.reshape(-1, C))
-        return gq.to(query.dtype), gp.view(B, N, C).to(points.dtype), None
+        gq = gp = None
+        if ctx.needs_input_grad[0]:
+            gq = torch.sum(2.0 * g_d[..., None] * diff, dim=2).to(query.dtype)
+        if ctx.needs_input_grad[1]:
+            B, N, C = points.shape
+            contrib = -2.0 * g_d[..., None] * diff
+            gp = K.scatter_add_rows(idx.reshape(B, -1),
+                                    contrib.reshape(B, -1, C).contiguous(),
+                                    N).to(points.dtype)
+        return gq, gp, None
 
 
 def knn_points(query: torch.Tensor, points: torch.Tensor,
@@ -118,6 +108,19 @@ def knn_points(query: torch.Tensor, points: torch.Tensor,
     (reference :389-401, exact kNN kernel)."""
     dists, idx = _KNN.apply(query, points, k)
     return KNNResult(dists=dists, idx=idx)
+
+
+def knn_idx(query: torch.Tensor, points: torch.Tensor,
+            k: int) -> torch.Tensor:
+    """Neighbour indices only ``[B, S, k]`` int32, ascending, lowest-index
+    ties, self included when the query is a point (reference :404-434).
+    Outside autograd, as the reference's ``stop_gradient``: indices are
+    piecewise constant, so nothing flows back through them. Any C up to
+    256, f32 or bf16; distances in f32 from the exactly widened inputs."""
+    with torch.no_grad():
+        _, idx = K.knn(query.detach().contiguous(),
+                       points.detach().contiguous(), k)
+    return idx
 
 
 def knn_indices(points: torch.Tensor, k: int
@@ -149,6 +152,38 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
         start = torch.full((B,), start_idx, dtype=torch.int32,
                            device=xyz.device)
     return K.fps(xyz.contiguous(), npoint, start)
+
+
+# ---------------------------------------------------------------------------
+# Graph max-pool (DGCNN's EdgeConv neighbour reduction)
+# ---------------------------------------------------------------------------
+
+class _GraphMaxPool(torch.autograd.Function):
+    """Forward: `kernels.graph_max_pool` (max and first-argmax slot).
+    Backward: the cotangent of each (row, channel) goes to the neighbour
+    in its slot, through `kernels.graph_max_pool_bwd` (reference custom
+    VJP, :268-285)."""
+
+    @staticmethod
+    def forward(ctx, y, idx):
+        mx, slot = K.graph_max_pool(y, idx)
+        ctx.save_for_backward(idx, slot)
+        ctx.n_points = y.shape[1]
+        return mx
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, slot = ctx.saved_tensors
+        return K.graph_max_pool_bwd(idx, slot, g.contiguous(),
+                                    ctx.n_points), None
+
+
+def graph_max_pool(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mx[b, n, c] = max_j y[b, idx[b, n, j], c]`` (reference
+    :247-259): the ``[B, N, k, C]`` neighbour tensor never exists. The
+    gradient goes to the first slot attaining the max, as torch's max
+    backward picks it."""
+    return _GraphMaxPool.apply(y.contiguous(), idx.contiguous())
 
 
 # ---------------------------------------------------------------------------

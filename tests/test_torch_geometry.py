@@ -12,6 +12,7 @@ import torch
 
 from hitadv_tpu.ops import geometry as JG
 from hitadv_torch.ops import geometry as G
+from test_torch_kernels import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -154,3 +155,40 @@ def test_l2_normalize():
     np.testing.assert_allclose(G.l2_normalize(_t(x)).numpy(),
                                np.asarray(JG.l2_normalize(jnp.asarray(x))),
                                rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("C", [64, 3])
+def test_knn_idx_feature_space_equal_indices(C):
+    """Self-included neighbour indices, as DGCNN takes them, against the
+    reference's `knn_idx` (XLA: matmul distances + top_k)."""
+    x = _cloud(15, 2, 128, C)
+    want = np.asarray(JG.knn_idx(jnp.asarray(x), jnp.asarray(x), 20))
+    xt = _t(x, grad=True)
+    got = G.knn_idx(xt, xt, 20)
+    assert got.dtype == torch.int32 and not got.requires_grad
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[..., 0].numpy() == np.arange(128)).all()   # self first
+
+
+def test_knn_points_grad_for_the_query_only():
+    """adv->ori Chamfer: only the query needs a gradient; the points'
+    scatter-add is skipped and the query's gradient is the reference's."""
+    q, p = _cloud(16, 2, 100), _cloud(17, 2, 120)
+    want = jax.grad(lambda q: jnp.sum(
+        JG.knn_points(q, jnp.asarray(p), 1).dists))(jnp.asarray(q))
+    qt = _t(q, grad=True)
+    pt = _t(p)
+    from hitadv_torch.ops import kernels as K
+
+    calls = []
+    real = K.scatter_add_rows
+    K.scatter_add_rows = lambda *a: calls.append(a) or real(*a)
+    try:
+        G.knn_points(qt, pt, 1).dists.sum().backward()
+    finally:
+        K.scatter_add_rows = real
+    assert pt.grad is None
+    # the gather's scatter-add is not needed either: only the query share
+    assert calls == []
+    np.testing.assert_allclose(qt.grad.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)

@@ -26,6 +26,7 @@ from hitadv_torch.attacks import hit_adv as H
 from hitadv_torch.convert import load_numpy_params, params_from_numpy
 from hitadv_torch.data import synthetic_clouds as port_synthetic_clouds
 from hitadv_torch.models import PointNet
+from test_torch_kernels import one_torch_thread  # noqa: F401
 
 PKL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                    "asr_victim_params.pkl")

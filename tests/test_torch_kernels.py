@@ -22,6 +22,23 @@ from hitadv_torch.ops import kernels as K
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Every CPU `test_torch_*.py` file imports this fixture by name.
+
+    The suite runs in several worker processes beside JAX's own thread
+    pools; torch's default of one thread per core oversubscribes the
+    machine, and these small ops then run many times slower. One thread
+    also fixes torch's reduction order, which follows its thread count,
+    so the trajectory comparisons round alike on every machine."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
+
+
 def _bf16_values(x: np.ndarray) -> np.ndarray:
     """Round to bf16 (through JAX) and widen back: the same values on
     both sides."""
@@ -155,9 +172,128 @@ def test_knn_duplicate_points_tie_to_lowest_index():
 
 
 def test_knn_refuses_feature_space():
-    x = torch.zeros(1, 16, 8)
-    with pytest.raises(NotImplementedError):
+    """Feature space is ported up to the kernel's 256 staged channels;
+    wider features, and mixed dtypes, are refused on every device."""
+    x = torch.zeros(1, 16, 257)
+    with pytest.raises(ValueError, match="C=257"):
         K.knn(x, x, 4)
+    y = torch.zeros(1, 16, 8)
+    with pytest.raises(TypeError):
+        K.knn(y, y.to(torch.bfloat16), 4)
+
+
+@pytest.mark.parametrize("C,k", [(64, 20), (13, 7)])
+def test_knn_feature_space_matches_pallas(C, k):
+    rng = np.random.RandomState(12)
+    q = rng.randn(2, 100, C).astype(np.float32)
+    p = rng.randn(2, 130, C).astype(np.float32)
+    p[:, 70] = p[:, 3]                     # a duplicate: an exact tie
+    want_d, want_i = PK.knn_pallas(jnp.asarray(q), jnp.asarray(p), k)
+    got_d, got_i = K.knn(_torch(q), _torch(p), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    # the Pallas kernel takes the matmul form of the distance, the port
+    # the left-to-right elementwise form: f32 rounding of C-term sums
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_knn_bf16_features_widen_exactly():
+    """bf16 features give the distances and indices of their exactly
+    widened f32 values."""
+    rng = np.random.RandomState(13)
+    x = _bf16_values(rng.randn(2, 90, 64).astype(np.float32))
+    d16, i16 = K.knn(_torch(x, torch.bfloat16), _torch(x, torch.bfloat16),
+                     20)
+    d32, i32 = K.knn(_torch(x), _torch(x), 20)
+    assert d16.dtype == torch.float32
+    assert torch.equal(i16, i32) and torch.equal(d16, d32)
+
+
+@pytest.mark.parametrize("N,M,C", [(100, 300, 3), (130, 64, 8)])
+def test_scatter_add_rows_matches_index_points_vjp(N, M, C):
+    from hitadv_tpu.ops import geometry as JG
+    import jax
+
+    rng = np.random.RandomState(14)
+    idx = rng.randint(0, N, (2, M)).astype(np.int32)
+    idx[:, :5] = 7                          # a crowded row
+    g = rng.randn(2, M, C).astype(np.float32)
+    x = jnp.zeros((2, N, C), jnp.float32)
+    _, vjp = jax.vjp(lambda p: JG.index_points(p, jnp.asarray(idx)), x)
+    (want,) = vjp(jnp.asarray(g))
+    for it in (torch.int32, torch.int64):
+        got = K.scatter_add_rows(_torch(idx).to(it), _torch(g), N)
+        # XLA's scatter-add and the port's ascending sum: f32 rounding
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    # the Pallas kernel splits f32 into hi|lo bf16 halves (2^-17 relative
+    # per term); on integer-valued data both sides are exact
+    gi = rng.randint(-8, 9, (2, M, C)).astype(np.float32)
+    want_p = PK.scatter_add_rows_pallas(jnp.asarray(idx), jnp.asarray(gi), N)
+    got = K.scatter_add_rows(_torch(idx), _torch(gi), N)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_p))
+    got16 = K.scatter_add_rows(_torch(idx), _torch(gi, torch.bfloat16), N)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(), np.asarray(want_p))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("N,k,C", [(100, 20, 64), (130, 5, 7)])
+def test_graph_max_pool_matches_pallas(N, k, C, bf16):
+    rng = np.random.RandomState(15)
+    y = rng.randn(2, N, C).astype(np.float32)
+    y[:, 9] = y[:, 4]                       # equal rows: ties across slots
+    if bf16:
+        y = _bf16_values(y)
+    idx = rng.randint(0, N, (2, N, k)).astype(np.int32)
+    idx[:, :, 1] = 4
+    idx[:, :, 2] = 9
+    idx[:, 0, 3] = idx[:, 0, 0]             # a repeated neighbour
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                           torch.float32)
+    want_mx, want_slot = PK.graph_max_pool_pallas(jnp.asarray(y, jdt),
+                                                  jnp.asarray(idx))
+    got_mx, got_slot = K.graph_max_pool(_torch(y, tdt), _torch(idx))
+    assert got_mx.dtype == tdt and got_slot.dtype == torch.int32
+    np.testing.assert_array_equal(got_mx.float().numpy(),
+                                  np.asarray(want_mx.astype(jnp.float32)))
+    np.testing.assert_array_equal(got_slot.numpy(), np.asarray(want_slot))
+    # the backward on integer-valued g: exact on both sides
+    g = rng.randint(-8, 9, (2, N, C)).astype(np.float32)
+    want_g = PK.graph_max_pool_bwd_pallas(jnp.asarray(idx), want_slot,
+                                          jnp.asarray(g, jdt), N)
+    got_g = K.graph_max_pool_bwd(_torch(idx), got_slot, _torch(g, tdt), N)
+    assert got_g.dtype == tdt
+    np.testing.assert_array_equal(got_g.float().numpy(),
+                                  np.asarray(want_g.astype(jnp.float32)))
+
+
+def test_graph_max_pool_vjp_matches_jax_custom_vjp():
+    """Values and the gradient of `geometry.graph_max_pool` against the
+    JAX custom VJP (XLA path) on generic f32 data, idx given."""
+    from hitadv_tpu.ops import geometry as JG
+    from hitadv_torch.ops import geometry as G
+    import jax
+
+    rng = np.random.RandomState(16)
+    y = rng.randn(2, 90, 24).astype(np.float32)
+    idx = rng.randint(0, 90, (2, 90, 20)).astype(np.int32)
+    w = rng.randn(2, 90, 24).astype(np.float32)
+    prev = JG.get_backend()
+    JG.set_backend("xla")
+    try:
+        want, vjp = jax.vjp(lambda v: JG.graph_max_pool(v, jnp.asarray(idx)),
+                            jnp.asarray(y))
+        (want_g,) = vjp(jnp.asarray(w))
+    finally:
+        JG.set_backend(prev)
+    yt = _torch(y).requires_grad_(True)
+    got = G.graph_max_pool(yt, _torch(idx))
+    (got * _torch(w)).sum().backward()
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    # XLA's scatter-add and the port's ascending f32 sum: rounding apart
+    np.testing.assert_allclose(yt.grad.numpy(), np.asarray(want_g),
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("N,npoint", [(130, 32), (100, 40)])
@@ -176,9 +312,69 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     K.reset_launches()
     x = torch.randn(2, 40, 3)
     K.knn(x, x, 4)
+    f = torch.randn(2, 40, 64, dtype=torch.bfloat16)
+    K.knn(f, f, 4)
     K.fps(x, 8, torch.zeros(2, dtype=torch.int32))
     K.gather_rows(x, torch.zeros(2, 5, dtype=torch.int32))
+    idx = torch.zeros(2, 40, 3, dtype=torch.int32)
+    K.scatter_add_rows(idx.reshape(2, -1), torch.randn(2, 120, 3), 40)
+    mx, slot = K.graph_max_pool(f, idx)
+    K.graph_max_pool_bwd(idx, slot, mx, 40)
     assert all(v == 0 for v in K.LAUNCHES.values())
+
+
+def test_chip_smoke_counts_launches_by_call_shape():
+    """`chip_smoke.KernelRecord` on a stand-in for the kernels module:
+    the paths' launches are counted by call shape, a kernel's row is
+    weighted by them, and a path shape no kernel phase checked fails."""
+    import types
+
+    import chip_smoke as S
+
+    launches = dict.fromkeys(S.WRAPPERS, 0)
+
+    def wrapper(name):
+        def launch(*args):
+            launches[name] += 1
+            return args[0]
+        return launch
+
+    fake = types.SimpleNamespace(
+        LAUNCHES=launches,
+        reset_launches=lambda: launches.update(dict.fromkeys(launches, 0)),
+        **{n: wrapper(n) for n in S.WRAPPERS})
+    no_sync = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None))
+    rec = S.KernelRecord(fake, no_sync)
+    a, b = torch.zeros(2, 5, 3), torch.zeros(4, 5, 3)
+    ia, ib = torch.zeros(2, 7, dtype=torch.int32), torch.zeros(
+        4, 9, dtype=torch.int64)
+
+    def path():
+        fake.gather_rows(a, ia)
+        fake.gather_rows(a, ia)
+        fake.gather_rows(b, ib)
+
+    _, _, counts = rec.counted(path)
+    sa, sb = S.shape_of((a, ia)), S.shape_of((b, ib))
+    assert sa == "float32[2, 5, 3] int32[2, 7]"
+    assert counts["gather_rows"] == 3
+    assert rec.path_shapes["gather_rows"] == {sa: 2, sb: 1}
+
+    def timed(ms):
+        return dict(max_abs_err=0.0, ms=ms, plain_ms=2 * ms, library_ms=None,
+                    bound_ms=ms / 10, bound_by="bytes")
+
+    rec.cases["gather_rows"] = {sa: timed(1.0)}
+    with pytest.raises(AssertionError, match="unchecked"):
+        rec.row("gather_rows")
+    rec.cases["gather_rows"][sb] = timed(4.0)
+    row = rec.row("gather_rows")
+    assert row["launches"] == 3 and row["library_ms"] is None
+    assert row["ms"] == pytest.approx((2 * 1.0 + 4.0) / 3)
+    assert row["bound_ms"] == pytest.approx(0.2) and row["bound_by"] == "bytes"
+    with pytest.raises(AssertionError, match="never launched"):
+        rec.row("fps")
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from hitadv_tpu.nn import functional as jnnF
 from hitadv_tpu.ops import geometry as JG
 from hitadv_torch.convert import params_from_numpy
 from hitadv_torch.models import PointNet, get_model
+from test_torch_kernels import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
