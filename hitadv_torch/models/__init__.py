@@ -1,14 +1,19 @@
-"""Victim models. PointNet and DGCNN are ported so far."""
+"""Victim models. PointNet, DGCNN, PointNet++ (SSG) and PCT are ported so
+far."""
 
 from typing import Dict, Type
 
 from torch import nn
 
 from hitadv_torch.models.dgcnn import DGCNN, DGCNNConfig  # noqa: F401
+from hitadv_torch.models.pct import PCT
 from hitadv_torch.models.pointnet import PointNet
+from hitadv_torch.models.pointnet2 import PointNet2
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {"pointnet": PointNet,
-                                         "dgcnn": DGCNN}
+                                         "dgcnn": DGCNN,
+                                         "pointnet++": PointNet2,
+                                         "pct": PCT}
 
 
 def get_model(name: str) -> Type[nn.Module]:

@@ -2,8 +2,9 @@
 
 Port of `hitadv_tpu/nn/functional.py` for inference: pointwise conv
 (= linear), BN folded into the preceding linear, the STN-transform fold,
-ReLU and LeakyReLU, and the fused conv + global max-pool over the
-max-linear kernels.
+ReLU and LeakyReLU, the conv-BN-act stack, the neighbour max with the
+reference's tie-splitting gradient, and the fused conv + global max-pool
+over the max-linear kernels.
 
 Parameters are mappings of tensors in the reference's layout: a linear or
 1x1-conv is ``{"w": [Cin, Cout], "b": [Cout]}``, a BN is
@@ -94,6 +95,21 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+def max_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``max`` over ``axis`` whose gradient splits among exact ties,
+    ``mask * (g / count)`` (reference custom VJP, :233-259). This is
+    `torch.amax`'s own backward; `torch.max(dim)` would send the whole
+    cotangent to one slot. The ball query pads short balls with their
+    first index, so duplicated neighbours, and exact ties, are common."""
+    return torch.amax(x, dim=axis)
+
+
+def max_mid(x: torch.Tensor) -> torch.Tensor:
+    """The neighbour-axis max of grouped features ``[..., ns, C] -> [...,
+    C]`` (reference :262-267)."""
+    return max_axis(x, -2)
+
+
 def linear(p: Params, x, compute_dtype=None) -> torch.Tensor:
     """``[..., Cin] -> [..., Cout]``; ``x`` may be a tuple of
     channel-partitioned parts (`linear_parts`)."""
@@ -162,6 +178,19 @@ def linear_bn_pre(lin: Params, bn: Params, pre: torch.Tensor,
         y = torch.matmul(_cast(x, compute_dtype), _cast(wb, compute_dtype))
         return y + _cast(b, compute_dtype)
     return torch.matmul(x, wb) + b
+
+
+def mlp_apply(params: Mapping[str, Params], x, compute_dtype=None,
+              start: int = 0) -> torch.Tensor:
+    """The conv-BN-ReLU stack ``conv{i}``/``bn{i}`` with each eval BN
+    folded into its linear (reference :444-470). ``start`` skips the
+    first layers (a caller that fused layer 0 into its gather passes 1,
+    and ``x`` is then that layer's activated output). ``x`` may be a
+    tuple of parts for `linear_parts`."""
+    for i in range(start, len(params) // 2):
+        x = relu(linear_bn(params[f"conv{i}"], params[f"bn{i}"], x,
+                           compute_dtype))
+    return x
 
 
 class _MaxLinear(torch.autograd.Function):

@@ -28,15 +28,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 SOURCES = ("max_linear_fwd", "max_linear_dh", "gather_rows", "knn", "nn",
-           "fps", "scatter_add_rows", "graph_max_pool")
+           "fps", "scatter_add_rows", "graph_max_pool", "ball_query",
+           "gather_group")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
-# kNN and FPS select indices from distances: without contraction into
-# FMAs every product and sum rounds as the plain PyTorch version's
-# separate elementwise ops do, so both give the same bits and indices.
+# kNN, FPS and the ball query select indices from distances: without
+# contraction into FMAs every product and sum rounds as the plain PyTorch
+# version's separate elementwise ops do, so both give the same bits and
+# indices.
 EXTRA_FLAGS = {"knn": ("-fmad=false",), "nn": ("-fmad=false",),
-               "fps": ("-fmad=false",)}
+               "fps": ("-fmad=false",), "ball_query": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

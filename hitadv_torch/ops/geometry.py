@@ -1,16 +1,17 @@
 """Point-cloud geometry of the ported paths.
 
 Port of the parts of `hitadv_tpu/ops/geometry.py` that HiT-ADV, the CW
-attacks and DGCNN run: distances, gathers and their scatter-add
-transpose, kNN (coordinate and feature space), farthest point sampling,
-the graph max-pool, the lower median and the Gaussian-kernel blend.
-Clouds are ``[B, N, C]``.
+attacks, DGCNN, PointNet++ and PCT run: distances, gathers (by rows and
+grouped neighbours-major) and their scatter-add transposes, kNN
+(coordinate and feature space), farthest point sampling, the ball query,
+the set-abstraction front ends, the graph max-pool, the lower median and
+the Gaussian-kernel blend. Clouds are ``[B, N, C]``.
 
-`index_points`, `knn_points`, `knn_idx`, `farthest_point_sample` and
-`graph_max_pool` go through the hand-written kernels of `ops/kernels.py`
-(the kernel on a CUDA tensor, its plain version on a CPU tensor), in both
-directions. The rest is plain PyTorch, as it is plain XLA in the
-reference.
+`index_points`, `gather_group_nm`, `knn_points`, `knn_idx`,
+`farthest_point_sample`, `query_ball_point` and `graph_max_pool` go
+through the hand-written kernels of `ops/kernels.py` (the kernel on a CUDA
+tensor, its plain version on a CPU tensor), in both directions. The rest
+is plain PyTorch, as it is plain XLA in the reference.
 """
 
 from __future__ import annotations
@@ -60,6 +61,30 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = _GatherRows.apply(points.contiguous(),
                             idx.reshape(B, -1).contiguous())
     return out.reshape(*idx.shape, C)
+
+
+class _GatherGroup(torch.autograd.Function):
+    """Grouped gather whose backward is the grouped scatter-add (reference
+    `_gather_group_bwd`, :179-183), both through the kernels; the
+    neighbours-major cotangent is read in place."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_points = x.shape[1]
+        return K.gather_group(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return K.scatter_add_group(idx, g.contiguous(), ctx.n_points), None
+
+
+def gather_group_nm(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Grouped gather, neighbours-major: ``out[b, j, s, :] = points[b,
+    idx[b, s, j], :]`` for idx ``[B, S, ns]`` -> ``[B, ns, S, C]``
+    (reference :139-165), so the neighbour reduction runs over axis 1."""
+    return _GatherGroup.apply(points.contiguous(), idx.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +177,85 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
         start = torch.full((B,), start_idx, dtype=torch.int32,
                            device=xyz.device)
     return K.fps(xyz.contiguous(), npoint, start)
+
+
+# ---------------------------------------------------------------------------
+# Ball query and the set-abstraction front ends (PointNet++ / PCT)
+# ---------------------------------------------------------------------------
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """Up to ``nsample`` indices within ``radius`` of each centre
+    ``[B, S, nsample]`` int32, ascending, padded with the first in-ball
+    index, an empty ball clamped to N - 1 (reference :533-574). Outside
+    autograd, as the reference's ``stop_gradient``."""
+    with torch.no_grad():
+        return K.ball_query(xyz.detach().float().contiguous(),
+                            new_xyz.detach().float().contiguous(), radius,
+                            nsample)
+
+
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     concat: bool = True):
+    """FPS from index 0 -> ball query -> gather -> centre-subtract ->
+    feature concat (reference :581-621). ``concat=False`` returns
+    ``(grouped_xyz_norm, grouped_points)`` for `linear_parts`. Returns
+    (new_xyz ``[B, npoint, 3]``, new_points ``[B, npoint, nsample, 3 +
+    D]``)."""
+    fps_idx = farthest_point_sample(xyz, npoint)
+    new_xyz = index_points(xyz, fps_idx)                     # [B, S, 3]
+    idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped_xyz = index_points(xyz, idx)                     # [B, S, ns, 3]
+    grouped_xyz_norm = grouped_xyz - new_xyz[:, :, None, :]
+    if points is not None:
+        grouped_points = index_points(points, idx)
+        if concat:
+            new_points = torch.cat([grouped_xyz_norm, grouped_points], -1)
+        else:
+            new_points = (grouped_xyz_norm, grouped_points)
+    else:
+        new_points = grouped_xyz_norm
+    return new_xyz, new_points
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor],
+                         concat: bool = True):
+    """A single global group (reference :624-643): new_xyz zeros
+    ``[B, 1, 3]``, the points ``[B, 1, N, 3 + D]`` (or the two parts
+    with ``concat=False``)."""
+    B, _, C = xyz.shape
+    new_xyz = torch.zeros((B, 1, C), dtype=xyz.dtype, device=xyz.device)
+    grouped_xyz = xyz[:, None, :, :]
+    if points is None:
+        return new_xyz, grouped_xyz
+    if concat:
+        return new_xyz, torch.cat([grouped_xyz, points[:, None]], dim=-1)
+    return new_xyz, (grouped_xyz, points[:, None])
+
+
+def knn_point(nsample: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor) -> torch.Tensor:
+    """PCT's kNN group indices ``[B, S, nsample]`` int32 (reference
+    :646-657), outside autograd."""
+    return knn_idx(new_xyz, xyz, nsample)
+
+
+def sample_and_group_knn(npoint: int, nsample: int, xyz: torch.Tensor,
+                         points: torch.Tensor, concat: bool = True):
+    """PCT's sample_and_group (reference :660-685), FPS from index 0: kNN
+    groups, features ``concat([grouped - centre, centre (tiled)])``;
+    ``concat=False`` returns ``(grouped_norm, centre [B, S, 1, D])`` for
+    `linear_parts`."""
+    fps_idx = farthest_point_sample(xyz, npoint)
+    new_xyz = index_points(xyz, fps_idx)                     # [B, S, 3]
+    new_points = index_points(points, fps_idx)               # [B, S, D]
+    idx = knn_point(nsample, xyz, new_xyz)                   # [B, S, ns]
+    grouped_norm = index_points(points, idx) - new_points[:, :, None, :]
+    if not concat:
+        return new_xyz, (grouped_norm, new_points[:, :, None, :])
+    tiled = new_points[:, :, None, :].expand_as(grouped_norm)
+    return new_xyz, torch.cat([grouped_norm, tiled], dim=-1)
 
 
 # ---------------------------------------------------------------------------

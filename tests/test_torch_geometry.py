@@ -192,3 +192,99 @@ def test_knn_points_grad_for_the_query_only():
     assert calls == []
     np.testing.assert_allclose(qt.grad.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_query_ball_point_matches_xla():
+    """Against the reference's XLA path (matmul distances, sort and
+    fill): at this seed no point lies within rounding of the rim, so the
+    indices agree; short balls (padded) and empty ones (N - 1) included."""
+    xyz = _cloud(18, 2, 300)
+    new_xyz = xyz[:, :64].copy()
+    new_xyz[:, -2:] += 20.0
+    want = np.asarray(JG.query_ball_point(0.4, 16, jnp.asarray(xyz),
+                                          jnp.asarray(new_xyz)))
+    got = G.query_ball_point(0.4, 16, _t(xyz, grad=True), _t(new_xyz))
+    assert got.dtype == torch.int32 and not got.requires_grad
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[:, -2:] == 299).all()
+    assert (want[:, :, -1] == want[:, :, 0]).any()
+
+
+def test_gather_group_nm_value_and_grad():
+    x = _cloud(19, 2, 100, 6)
+    idx = np.random.RandomState(20).randint(0, 100, (2, 30, 7)).astype(
+        np.int32)
+    wgt = np.random.RandomState(21).randn(2, 7, 30, 6).astype(np.float32)
+    want, vjp = jax.vjp(lambda p: JG.gather_group_nm(p, jnp.asarray(idx)),
+                        jnp.asarray(x))
+    (want_g,) = vjp(jnp.asarray(wgt))
+    xt = _t(x, grad=True)
+    got = G.gather_group_nm(xt, _t(idx))
+    assert got.shape == (2, 7, 30, 6)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    (got * _t(wgt)).sum().backward()
+    # XLA's scatter-add and the port's ascending f32 sum: rounding apart
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_g),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_max_axis_splits_ties_like_the_jax_vjp():
+    """Short balls repeat their first index, so the neighbour max meets
+    exact ties; the gradient splits among them as the JAX custom VJP's
+    ``mask * (g / count)`` does, and not as torch.max's single slot."""
+    from hitadv_tpu.nn import functional as jnnF
+    from hitadv_torch.nn import functional as F
+
+    x = _cloud(22, 2, 40, 5)
+    centres = x[:, :12, :3].copy()
+    idx = np.asarray(JG.query_ball_point(0.8, 8, jnp.asarray(x[..., :3]),
+                                         jnp.asarray(centres)))
+    assert (idx[..., -1] == idx[..., 0]).any()     # padded: duplicates
+    wgt = np.random.RandomState(23).randn(2, 12, 5).astype(np.float32)
+
+    def jloss(p):
+        return jnp.sum(jnnF.max_axis(JG.gather_group_nm(
+            p, jnp.asarray(idx)), 1) * wgt)
+    want_g = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    xt = _t(x, grad=True)
+    got = F.max_axis(G.gather_group_nm(xt, _t(idx)), 1)
+    (got * _t(wgt)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want_g, rtol=1e-6,
+                               atol=1e-6)
+    # each duplicate holds an equal share: the split is visible per slot
+    grouped = _t(x, grad=True)
+    h = G.gather_group_nm(grouped, _t(idx))
+    h.retain_grad()
+    (F.max_axis(h, 1) * _t(wgt)).sum().backward()
+    slot_g = h.grad.numpy()                          # [B, ns, S, C]
+    b, s = np.argwhere(idx[..., -1] == idx[..., 0])[0]
+    np.testing.assert_array_equal(slot_g[b, 0, s], slot_g[b, -1, s])
+    assert np.abs(slot_g[b, 0, s]).sum() > 0
+
+
+def test_set_abstraction_front_ends_match():
+    """`sample_and_group` (ball query), `sample_and_group_all`,
+    `knn_point` and `sample_and_group_knn` against the reference's,
+    FPS from index 0."""
+    xyz, pts = _cloud(24, 2, 200), _cloud(25, 2, 200, 8)
+    jx, jp = jnp.asarray(xyz), jnp.asarray(pts)
+    for concat in (True, False):
+        want = JG.sample_and_group(64, 0.6, 16, jx, jp, concat=concat)
+        got = G.sample_and_group(64, 0.6, 16, _t(xyz), _t(pts),
+                                 concat=concat)
+        for w, g in zip(jax.tree_util.tree_leaves(want),
+                        [got[0], *(got[1] if not concat else (got[1],))]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = JG.sample_and_group_all(jx, jp)
+    got = G.sample_and_group_all(_t(xyz), _t(pts))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        G.knn_point(8, _t(xyz), _t(xyz[:, :50])).numpy(),
+        np.asarray(JG.knn_point(8, jx, jnp.asarray(xyz[:, :50]))))
+    for concat in (True, False):
+        want = JG.sample_and_group_knn(50, 8, jx, jp, concat=concat)
+        got = G.sample_and_group_knn(50, 8, _t(xyz), _t(pts), concat=concat)
+        for w, g in zip(jax.tree_util.tree_leaves(want),
+                        [got[0], *(got[1] if not concat else (got[1],))]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))

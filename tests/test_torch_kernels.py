@@ -320,6 +320,10 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     K.scatter_add_rows(idx.reshape(2, -1), torch.randn(2, 120, 3), 40)
     mx, slot = K.graph_max_pool(f, idx)
     K.graph_max_pool_bwd(idx, slot, mx, 40)
+    ball = K.ball_query(x, x[:, :7].contiguous(), 0.5, 4)
+    grouped = K.gather_group(f, ball)
+    K.scatter_add_group(ball, grouped, 40)
+    assert len(K.LAUNCHES) == 12
     assert all(v == 0 for v in K.LAUNCHES.values())
 
 
@@ -375,6 +379,71 @@ def test_chip_smoke_counts_launches_by_call_shape():
     assert row["bound_ms"] == pytest.approx(0.2) and row["bound_by"] == "bytes"
     with pytest.raises(AssertionError, match="never launched"):
         rec.row("fps")
+
+
+@pytest.mark.parametrize("N,S,ns,radius", [(130, 40, 8, 1.0),
+                                            (100, 30, 16, 0.9)])
+def test_ball_query_matches_pallas(N, S, ns, radius):
+    rng = np.random.RandomState(17)
+    xyz = rng.randn(2, N, 3).astype(np.float32)
+    centres = xyz[:, rng.choice(N, S, replace=False)].copy()
+    centres[:, -3:] += 10.0                # far from every point: empty
+    want = np.asarray(PK.ball_query_pallas(radius, ns, jnp.asarray(xyz),
+                                           jnp.asarray(centres)))
+    got = K.ball_query(_torch(xyz), _torch(centres), radius, ns)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the cases are there: full, short (padded with the first) and empty
+    # (all N - 1) balls
+    distinct = np.array([[len(set(r)) for r in c] for c in want])
+    assert (distinct == ns).any() and ((distinct > 1) & (distinct < ns)).any()
+    assert (want[:, -3:] == N - 1).all()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_group_bitwise(bf16):
+    rng = np.random.RandomState(18)
+    x = rng.randn(2, 130, 24).astype(np.float32) * 3
+    if bf16:
+        x = _bf16_values(x)
+    idx = rng.randint(0, 130, (2, 40, 8)).astype(np.int32)
+    idx[:, :, 5:] = idx[:, :, :1]          # a short ball's padding
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                           torch.float32)
+    want = np.asarray(PK.gather_group_pallas(jnp.asarray(x, jdt),
+                                             jnp.asarray(idx)
+                                             ).astype(jnp.float32))
+    assert want.shape == (2, 8, 40, 24)
+    for it in (torch.int32, torch.int64):
+        got = K.gather_group(_torch(x, tdt), _torch(idx).to(it))
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_scatter_add_group_matches_pallas():
+    rng = np.random.RandomState(19)
+    N, S, ns, C = 130, 40, 8, 24
+    idx = rng.randint(0, N, (2, S, ns)).astype(np.int32)
+    idx[:, :, 5:] = idx[:, :, :1]          # repeated sources per row
+    idx[:, :6, 0] = 11                     # a crowded row
+    # integer-valued cotangents: exact on both sides, f32 and bf16
+    gi = rng.randint(-8, 9, (2, ns, S, C)).astype(np.float32)
+    want = np.asarray(PK.scatter_add_group_pallas(jnp.asarray(idx),
+                                                  jnp.asarray(gi), N))
+    for it in (torch.int32, torch.int64):
+        got = K.scatter_add_group(_torch(idx).to(it), _torch(gi), N)
+        np.testing.assert_array_equal(got.numpy(), want)
+    got16 = K.scatter_add_group(_torch(idx), _torch(gi, torch.bfloat16), N)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(), want)
+    # generic f32: the Pallas kernel splits each term into hi|lo bf16
+    # halves (2^-17 relative per term); the port sums true f32
+    g = rng.randn(2, ns, S, C).astype(np.float32)
+    want = np.asarray(PK.scatter_add_group_pallas(jnp.asarray(idx),
+                                                  jnp.asarray(g), N))
+    got = K.scatter_add_group(_torch(idx), _torch(g), N).numpy()
+    mass = K.scatter_add_group(_torch(idx), _torch(np.abs(g)), N).numpy()
+    assert (np.abs(got - want) <= 2.0 ** -17 * mass + 1e-6 * mass).all()
 
 
 # ---------------------------------------------------------------------------
