@@ -7,4 +7,8 @@ from hitadv_torch.attacks.cw import (  # noqa: F401
     make_cw_knn,
     make_cw_perturb,
 )
-from hitadv_torch.attacks.hit_adv import HiTADVConfig, make_hit_adv  # noqa: F401
+from hitadv_torch.attacks.hit_adv import (  # noqa: F401
+    BLENDS,
+    HiTADVConfig,
+    make_hit_adv,
+)

@@ -6,7 +6,10 @@ surface against the reference (`ShapeAttack/HiT_ADV.py:15-287`):
   2. central points: FPS(total_central_num) -> kNN ring -> per-ring
      argmax of the score -> global top central_num;
   3. deformation: a Gaussian-kernel blend of per-centre translations
-     ``pert [B, Cn, 3]`` with widths ``delta [B, Cn]``;
+     ``pert [B, Cn, 3]`` with widths ``delta [B, Cn]``, from the distance
+     field built once per attack (``blend="field"``: plain exp + einsum;
+     ``blend="kernel"``: the kernel pair on the transposed field, the
+     reference's ``set_blend_impl("pallas")``);
   4. loss: CW margin + cd * the 3x3 "chamfer" quirk + ker * (|pert| +
      |1 - delta|) / Cn + hide * cos-sim(delta, curvature std);
   5. a binary search over the loss weight, which enters the gradient as
@@ -139,6 +142,14 @@ def prepare_centrals(logits_fn: Callable, cfg: HiTADVConfig,
     return ori, central_points, central_kappa_std
 
 
+BLENDS = ("field", "kernel")
+
+
+def _check_blend(blend: str) -> None:
+    if blend not in BLENDS:
+        raise ValueError(f"blend must be one of {BLENDS}, got {blend!r}")
+
+
 class InnerState(NamedTuple):
     """The inner loop's carry."""
     pert: torch.Tensor          # [B, Cn, 3]
@@ -153,18 +164,28 @@ class InnerState(NamedTuple):
 
 def make_inner_iter(logits_fn: Callable, adv_fn: Callable,
                     cfg: HiTADVConfig, ori, labels, central_points,
-                    central_kappa_std) -> Callable[[InnerState], InnerState]:
+                    central_kappa_std, blend: str = "field"
+                    ) -> Callable[[InnerState], InnerState]:
     """One Adam iteration of the attack (reference :164-245): projection,
     forward and backward of the full loss, bookkeeping, two Adam groups.
     The Gaussian field's distances are loop-invariant and built here,
-    once."""
+    once; ``blend="kernel"`` keeps only the transposed field ``[B, N,
+    Cn]`` that the kernel pair reads (reference :196-203)."""
+    _check_blend(blend)
     Cn = cfg.central_num
     with torch.no_grad():
         negd = G.neg_gaussian_field(central_points, ori)       # [B, Cn, N]
+        negdt = None
+        if blend == "kernel":
+            negdt, negd = negd.transpose(1, 2).contiguous(), None
+
+    def deform(pert, delta):
+        if negdt is not None:
+            return G.gaussian_blend_negdt(negdt, delta, pert)
+        return G.gaussian_blend(central_points, ori, delta, pert, negd=negd)
 
     def loss_fn(pert, delta, weight):
-        num, deno = G.gaussian_blend(central_points, ori, delta, pert,
-                                     negd=negd)
+        num, deno = deform(pert, delta)
         tmp_adv = ori + num / deno[..., None]
         logits = logits_fn(tmp_adv)
         adv_loss = torch.mean(adv_fn(logits, labels))
@@ -219,7 +240,7 @@ def make_inner_iter(logits_fn: Callable, adv_fn: Callable,
 def make_hit_adv(logits_fn: Callable, adv_fn: Callable,
                  cfg: HiTADVConfig = HiTADVConfig(), *,
                  init_overrides: Optional[Mapping] = None,
-                 device="cuda"):
+                 device="cuda", blend: str = "field"):
     """Build the HiT-ADV attack.
 
     Args:
@@ -232,12 +253,16 @@ def make_hit_adv(logits_fn: Callable, adv_fn: Callable,
         with the JAX package's under the same draws.
       device: where the attack runs; ``"cuda"`` unless the caller asks
         for the CPU.
+      blend: ``"field"`` (exp + einsum on the hoisted field, plain
+        PyTorch) or ``"kernel"`` (`geometry.gaussian_blend_negdt`, the
+        kernel pair on the transposed field); any other value raises.
     Returns:
       ``attack(points [B, N, 6], labels [B], generator) ->
       AttackResult``. ``generator`` (a `torch.Generator` on ``device``)
       draws the FPS start and each binary step's initial pert/delta; it
       may be None only with ``init_overrides``.
     """
+    _check_blend(blend)
     dev = resolve_device(device)
     Cn = cfg.central_num
     overrides = None
@@ -257,7 +282,8 @@ def make_hit_adv(logits_fn: Callable, adv_fn: Callable,
             logits_fn, cfg, points, labels,
             generator=None if overrides is not None else generator)
         inner_iter = make_inner_iter(logits_fn, adv_fn, cfg, ori, labels,
-                                     central_points, central_kappa_std)
+                                     central_points, central_kappa_std,
+                                     blend)
 
         lower = torch.zeros(B, device=dev)
         upper = torch.full((B,), cfg.max_weight, device=dev)

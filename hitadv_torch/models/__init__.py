@@ -1,5 +1,5 @@
-"""Victim models. PointNet, DGCNN, PointNet++ (SSG) and PCT are ported so
-far."""
+"""Victim models. PointNet, DGCNN, PointNet++ (SSG), PCT and PointConv are
+ported so far."""
 
 from typing import Dict, Type
 
@@ -7,13 +7,15 @@ from torch import nn
 
 from hitadv_torch.models.dgcnn import DGCNN, DGCNNConfig  # noqa: F401
 from hitadv_torch.models.pct import PCT
+from hitadv_torch.models.pointconv import PointConv
 from hitadv_torch.models.pointnet import PointNet
 from hitadv_torch.models.pointnet2 import PointNet2
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {"pointnet": PointNet,
                                          "dgcnn": DGCNN,
                                          "pointnet++": PointNet2,
-                                         "pct": PCT}
+                                         "pct": PCT,
+                                         "pointconv": PointConv}
 
 
 def get_model(name: str) -> Type[nn.Module]:

@@ -29,14 +29,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 SOURCES = ("max_linear_fwd", "max_linear_dh", "gather_rows", "knn", "nn",
            "fps", "scatter_add_rows", "graph_max_pool", "ball_query",
-           "gather_group")
+           "gather_group", "kde_density", "gaussian_blend")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # kNN, FPS and the ball query select indices from distances: without
 # contraction into FMAs every product and sum rounds as the plain PyTorch
 # version's separate elementwise ops do, so both give the same bits and
-# indices.
+# indices. (kde_density.cu and gaussian_blend.cu need no flag: they round
+# each term's operations through the __f*_rn intrinsics, which are never
+# contracted.)
 EXTRA_FLAGS = {"knn": ("-fmad=false",), "nn": ("-fmad=false",),
                "fps": ("-fmad=false",), "ball_query": ("-fmad=false",)}
 

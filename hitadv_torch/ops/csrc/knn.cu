@@ -30,8 +30,11 @@
 //
 // Design: 32 queries per block, one per lane, and four warps that each
 // scan a quarter of every point tile; a lexicographic merge of the four
-// top-k lists ends the block. A query of 128 channels cannot live in
-// registers beside a 32-slot top-k, so the block stages its
+// top-k lists ends the block. The top-k list is KMAX registers of
+// distances and indices, KMAX = 32 or 64 by k (two template instances;
+// the k <= 32 instance is the kernel of every k <= 32 query). A query of
+// 128 channels cannot live in registers beside a 32-slot top-k, so the
+// block stages its
 // queries in shared memory (channels padded to a multiple of 4 with
 // zeros, which add exact zeros to every sum; rows padded by one float4 so
 // that a quarter-warp's 16-byte loads fall in distinct banks) and streams
@@ -55,7 +58,6 @@ namespace {
 
 using hitadv::to_f32;
 
-constexpr int KMAX = 32;
 constexpr int QT = 32;          // queries per block, one per lane
 constexpr int G = 4;            // warps per block, one point sub-tile each
 constexpr int PT = 16;          // points per warp per tile
@@ -76,7 +78,7 @@ __host__ __device__ inline int region4(int C4, int k) {
   return TILE * C4 > merge4 ? TILE * C4 : merge4;
 }
 
-template <typename T>
+template <typename T, int KMAX>
 __global__ void __launch_bounds__(QT * G)
 knn_kernel(const T* __restrict__ q, const T* __restrict__ p,
            float* __restrict__ out_d, int* __restrict__ out_i, int Nq, int N,
@@ -227,7 +229,11 @@ knn_kernel(const T* __restrict__ q, const T* __restrict__ p,
   }
 }
 
-template <typename T>
+// One instance per list length: KMAX = 32 for k <= 32 (the prep, DGCNN,
+// PCT, CW-UKNN) and KMAX = 64 for 32 < k <= 64 (PointConv's second
+// stage). The dynamic shared-memory limit is an attribute of each
+// instance, so each instance raises its own.
+template <typename T, int KMAX>
 int launch(const void* q, const void* p, float* out_d, int* out_i, int B,
            int Nq, int N, int C, int k, cudaStream_t stream) {
   const int C4 = (C + 3) / 4;
@@ -236,27 +242,35 @@ int launch(const void* q, const void* p, float* out_d, int* out_i, int B,
       ((size_t)TILE + (size_t)QT * G * (PT + 1)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        knn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_kernel<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((Nq + QT - 1) / QT, B);
-  knn_kernel<T><<<grid, QT * G, smem, stream>>>(
+  knn_kernel<T, KMAX><<<grid, QT * G, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(p), out_d, out_i, Nq,
       N, C, C4, k);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_k(const void* q, const void* p, float* out_d, int* out_i, int B,
+             int Nq, int N, int C, int k, cudaStream_t stream) {
+  if (k <= 32)
+    return launch<T, 32>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
+  return launch<T, 64>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
+}
+
 }  // namespace
 
 // q [B, Nq, C], p [B, N, C] of one dtype (is_bf16 selects bf16, else f32)
-// with 1 <= C <= 256 and 1 <= k <= min(N, KMAX); out_d [B, Nq, k] f32,
+// with 1 <= C <= 256 and 1 <= k <= min(N, 64); out_d [B, Nq, k] f32,
 // out_i [B, Nq, k] i32. All contiguous.
 extern "C" int knn(const void* q, const void* p, float* out_d, int* out_i,
                    int B, int Nq, int N, int C, int k, int is_bf16,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, p, out_d, out_i, B, Nq, N, C, k, s);
-  return launch<float>(q, p, out_d, out_i, B, Nq, N, C, k, s);
+    return launch_k<__nv_bfloat16>(q, p, out_d, out_i, B, Nq, N, C, k, s);
+  return launch_k<float>(q, p, out_d, out_i, B, Nq, N, C, k, s);
 }

@@ -1,17 +1,20 @@
 """Point-cloud geometry of the ported paths.
 
 Port of the parts of `hitadv_tpu/ops/geometry.py` that HiT-ADV, the CW
-attacks, DGCNN, PointNet++ and PCT run: distances, gathers (by rows and
-grouped neighbours-major) and their scatter-add transposes, kNN
+attacks, DGCNN, PointNet++, PCT and PointConv run: distances, gathers (by
+rows and grouped neighbours-major) and their scatter-add transposes, kNN
 (coordinate and feature space), farthest point sampling, the ball query,
-the set-abstraction front ends, the graph max-pool, the lower median and
-the Gaussian-kernel blend. Clouds are ``[B, N, C]``.
+the set-abstraction front ends, the graph max-pool, PointConv's KDE
+density, the lower median and the Gaussian-kernel blend (from the clouds,
+or from the hoisted field through its kernel pair). Clouds are
+``[B, N, C]``.
 
 `index_points`, `gather_group_nm`, `knn_points`, `knn_idx`,
-`farthest_point_sample`, `query_ball_point` and `graph_max_pool` go
-through the hand-written kernels of `ops/kernels.py` (the kernel on a CUDA
-tensor, its plain version on a CPU tensor), in both directions. The rest
-is plain PyTorch, as it is plain XLA in the reference.
+`farthest_point_sample`, `query_ball_point`, `graph_max_pool`,
+`kde_density` and `gaussian_blend_negdt` go through the hand-written
+kernels of `ops/kernels.py` (the kernel on a CUDA tensor, its plain
+version on a CPU tensor), in both directions. The rest is plain PyTorch,
+as it is plain XLA in the reference.
 """
 
 from __future__ import annotations
@@ -326,6 +329,74 @@ def _blend_from_negd(negd: torch.Tensor, delta: torch.Tensor,
     pert1 = torch.cat([pert, torch.ones_like(pert[..., :1])], dim=-1)
     nd = torch.einsum("bjc,bjn->bnc", pert1, ker)            # [B, N, 4]
     return nd[..., :3], nd[..., 3]
+
+
+class _BlendNegdt(torch.autograd.Function):
+    """The blend from the transposed field through the kernel pair
+    (reference custom VJP, :896-951): the backward's kernel gives the
+    cotangents of delta and pert; the field's own, plain PyTorch (the
+    reference's :936-944), only when the field needs one, which inside
+    the attack it never does."""
+
+    @staticmethod
+    def forward(ctx, negdt, delta, pert):
+        ctx.save_for_backward(negdt, delta, pert)
+        return K.gaussian_blend_negdt(negdt, delta, pert)
+
+    @staticmethod
+    def backward(ctx, g_num, g_deno):
+        negdt, delta, pert = ctx.saved_tensors
+        g_num, g_deno = g_num.contiguous(), g_deno.contiguous()
+        g_negdt = g_delta = g_pert = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            g_delta, g_pert = K.gaussian_blend_negdt_bwd(
+                negdt, delta, pert, g_num, g_deno)
+        if ctx.needs_input_grad[0]:
+            inv2d2 = (1.0 / (2.0 * delta * delta))[:, None, :]  # [B, 1, Cn]
+            gker = torch.einsum("bnc,bjc->bnj", g_num, pert) \
+                + g_deno[..., None]
+            g_negdt = gker * torch.exp(negdt * inv2d2) * inv2d2
+        return g_negdt, g_delta, g_pert
+
+
+def gaussian_blend_negdt(negdt: torch.Tensor, delta: torch.Tensor,
+                         pert: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`gaussian_blend` from the transposed field ``negdt =
+    neg_gaussian_field(central, ori).transpose(1, 2)`` ``[B, N, Cn]``
+    (reference :896-921), through `kernels.gaussian_blend_negdt` in both
+    directions -> (num ``[B, N, 3]``, deno ``[B, N]``)."""
+    return _BlendNegdt.apply(negdt.contiguous(), delta.contiguous(),
+                             pert.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# KDE density (PointConv)
+# ---------------------------------------------------------------------------
+
+class _KDEDensity(torch.autograd.Function):
+    """Forward and backward through the KDE kernel pair (reference custom
+    VJP, :1006-1038); the bandwidth is a constant."""
+
+    @staticmethod
+    def forward(ctx, xyz, bandwidth):
+        ctx.save_for_backward(xyz)
+        ctx.bandwidth = bandwidth
+        return K.kde_density(xyz, bandwidth)
+
+    @staticmethod
+    def backward(ctx, g):
+        (xyz,) = ctx.saved_tensors
+        gx = K.kde_density_bwd(xyz, ctx.bandwidth, g.float().contiguous())
+        return gx.to(xyz.dtype), None
+
+
+def kde_density(xyz: torch.Tensor, bandwidth: float) -> torch.Tensor:
+    """PointConv's Gaussian KDE density ``[B, N, 3] -> [B, N]`` f32,
+    ``mean_j exp(-|x_i - x_j|^2 / (2 bw^2)) / (2.5 bw)`` over the whole
+    cloud (reference :1006-1022, `util/pointconv_util.py:209-219`). On
+    CUDA neither direction stores the ``[B, N, N]`` Gaussian."""
+    return _KDEDensity.apply(xyz.contiguous(), float(bandwidth))
 
 
 # ---------------------------------------------------------------------------

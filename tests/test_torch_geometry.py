@@ -288,3 +288,74 @@ def test_set_abstraction_front_ends_match():
         for w, g in zip(jax.tree_util.tree_leaves(want),
                         [got[0], *(got[1] if not concat else (got[1],))]):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _pallas_grad(fn, args, argnums):
+    """``jax.grad`` of ``fn`` with the JAX geometry on its Pallas path
+    (interpret mode on the CPU); the knob goes back to XLA after."""
+    JG.set_backend("pallas")
+    try:
+        return jax.value_and_grad(fn, argnums=argnums)(*args)
+    finally:
+        JG.set_backend("xla")
+
+
+@pytest.mark.parametrize("N,bw", [(130, 0.15), (200, 0.1)])
+def test_kde_density_value_and_grad(N, bw):
+    """`geometry.kde_density` (an autograd Function over the KDE pair)
+    against the JAX custom VJP on its Pallas path, and the value against
+    the XLA path."""
+    x = _cloud(30, 2, N) * 0.5
+    w = np.random.RandomState(31).randn(2, N).astype(np.float32)
+    jv, jg = _pallas_grad(lambda v: jnp.sum(JG.kde_density(v, bw) * w),
+                          (jnp.asarray(x),), 0)
+    xt = _t(x, grad=True)
+    dens = G.kde_density(xt, bw)
+    v = (dens * _t(w)).sum()
+    v.backward()
+    np.testing.assert_allclose(v.item(), float(jv), rtol=1e-5)
+    # the Pallas backward's expanded form cancels at the ~1e-5 level; the
+    # port sums the product form in f64
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), rtol=1e-4,
+                               atol=1e-4 * np.abs(np.asarray(jg)).max())
+    # the XLA path's matmul-form distances cancel near d = 0 (the JAX
+    # package's own tolerance for it)
+    np.testing.assert_allclose(
+        dens.detach().numpy(), np.asarray(JG.kde_density(jnp.asarray(x), bw)),
+        rtol=2e-4, atol=1e-5)
+
+
+def test_gaussian_blend_negdt_grads_all_args():
+    """`geometry.gaussian_blend_negdt` against the JAX custom VJP on its
+    Pallas path: values, and the cotangents of the field (plain PyTorch),
+    the widths and the translations (the backward kernel's plain
+    version), at `tests/test_pallas_kernels.py`'s shape."""
+    from test_torch_kernels import _blend_inputs
+
+    rng = np.random.RandomState(32)
+    negdt, delta, pert = _blend_inputs(rng, 2, 12, 130)
+    w_num = rng.randn(2, 130, 3).astype(np.float32)
+    w_deno = rng.randn(2, 130).astype(np.float32)
+
+    def loss(nt, d, p):
+        num, deno = JG.gaussian_blend_negdt(nt, d, p)
+        return jnp.sum(num * w_num) + jnp.sum(deno * w_deno)
+
+    jv, jgrads = _pallas_grad(loss, [jnp.asarray(a) for a in
+                                     (negdt, delta, pert)], (0, 1, 2))
+    ts = [_t(a, grad=True) for a in (negdt, delta, pert)]
+    num, deno = G.gaussian_blend_negdt(*ts)
+    v = (num * _t(w_num)).sum() + (deno * _t(w_deno)).sum()
+    v.backward()
+    np.testing.assert_allclose(v.item(), float(jv), rtol=1e-5)
+    for t, want, name in zip(ts, jgrads, ("negdt", "delta", "pert")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    # the blend from the untransposed field (plain exp + einsum) gives
+    # the same values
+    field_num, field_deno = G._blend_from_negd(
+        _t(negdt).transpose(1, 2), _t(delta), _t(pert))
+    np.testing.assert_allclose(num.detach().numpy(), field_num.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(deno.detach().numpy(), field_deno.numpy(),
+                               rtol=1e-5, atol=1e-6)

@@ -278,3 +278,39 @@ def test_attack_needs_a_generator_unless_pinned(victims):
     assert torch.equal(a.adv_points, b.adv_points)
     assert (a.adv_points - torch.from_numpy(pts[..., :3])).abs().max() \
         <= 0.55 + 1e-4
+
+
+def test_kernel_blend_matches_field_blend(victims):
+    """``blend="kernel"`` (the blend-from-field pair on the transposed
+    field) against ``blend="field"`` (exp + einsum), the same pinned
+    draws, at the SMALL config."""
+    _, model = victims
+    pts, _ = synthetic_clouds(3, 128, seed=9)
+    with torch.no_grad():
+        labels = model(torch.from_numpy(pts[..., :3])).argmax(-1).numpy()
+    ov = _overrides(13, SMALL["binary_step"], 3, SMALL["central_num"], 0.55)
+    out = {blend: H.make_hit_adv(model, B.make_adv_fn("logits", kappa=30.0),
+                                 H.HiTADVConfig(**SMALL), init_overrides=ov,
+                                 device="cpu", blend=blend)(pts, labels)
+           for blend in ("field", "kernel")}
+    # the same ker on both sides; num and deno summed in another order
+    # (einsum in f32 against f64 sums), ~1e-7 per blend, carried through
+    # 16 Adam iterations: 6e-8 apart on the CPU
+    np.testing.assert_allclose(out["kernel"].adv_points.numpy(),
+                               out["field"].adv_points.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(out["kernel"].success.numpy(),
+                                  out["field"].success.numpy())
+
+
+def test_blend_must_be_field_or_kernel(victims, centrals):
+    _, model = victims
+    adv_fn = B.make_adv_fn("logits", kappa=30.0)
+    for bad in ("pallas", "xla", "auto", "", None):
+        with pytest.raises(ValueError, match="blend"):
+            H.make_hit_adv(model, adv_fn, H.HiTADVConfig(**SMALL),
+                           device="cpu", blend=bad)
+    _, labels, (ori, cp, ks), _ = centrals
+    t = torch.tensor
+    with pytest.raises(ValueError, match="blend"):
+        H.make_inner_iter(model, adv_fn, H.HiTADVConfig(**SMALL), t(ori),
+                          t(labels).long(), t(cp), t(ks), blend="pallas")

@@ -173,10 +173,14 @@ def test_knn_duplicate_points_tie_to_lowest_index():
 
 def test_knn_refuses_feature_space():
     """Feature space is ported up to the kernel's 256 staged channels;
-    wider features, and mixed dtypes, are refused on every device."""
+    wider features, and mixed dtypes, are refused on every device; so is
+    k beyond the kernel's longest top-k list (64)."""
     x = torch.zeros(1, 16, 257)
     with pytest.raises(ValueError, match="C=257"):
         K.knn(x, x, 4)
+    z = torch.zeros(1, 100, 3)
+    with pytest.raises(ValueError, match="k=65"):
+        K.knn(z, z, 65)
     y = torch.zeros(1, 16, 8)
     with pytest.raises(TypeError):
         K.knn(y, y.to(torch.bfloat16), 4)
@@ -312,6 +316,7 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     K.reset_launches()
     x = torch.randn(2, 40, 3)
     K.knn(x, x, 4)
+    K.knn(x, x, 40)
     f = torch.randn(2, 40, 64, dtype=torch.bfloat16)
     K.knn(f, f, 4)
     K.fps(x, 8, torch.zeros(2, dtype=torch.int32))
@@ -323,7 +328,12 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     ball = K.ball_query(x, x[:, :7].contiguous(), 0.5, 4)
     grouped = K.gather_group(f, ball)
     K.scatter_add_group(ball, grouped, 40)
-    assert len(K.LAUNCHES) == 12
+    dens = K.kde_density(x, 0.3)
+    K.kde_density_bwd(x, 0.3, dens)
+    negdt, delta, pert = -torch.rand(2, 40, 5), torch.rand(2, 5) + 0.1, x[:, :5]
+    num, deno = K.gaussian_blend_negdt(negdt, delta, pert)
+    K.gaussian_blend_negdt_bwd(negdt, delta, pert, num, deno)
+    assert len(K.LAUNCHES) == 16
     assert all(v == 0 for v in K.LAUNCHES.values())
 
 
@@ -444,6 +454,100 @@ def test_scatter_add_group_matches_pallas():
     got = K.scatter_add_group(_torch(idx), _torch(g), N).numpy()
     mass = K.scatter_add_group(_torch(idx), _torch(np.abs(g)), N).numpy()
     assert (np.abs(got - want) <= 2.0 ** -17 * mass + 1e-6 * mass).all()
+
+
+@pytest.mark.parametrize("Nq,N,C", [(128, 512, 3), (100, 130, 13)])
+def test_knn_at_k64_matches_jax(Nq, N, C):
+    """PointConv's second stage groups by 64 neighbours: the plain kNN at
+    k=64 against the JAX package's `knn_idx` (XLA) and `knn_pallas`."""
+    from hitadv_tpu.ops import geometry as JG
+
+    rng = np.random.RandomState(20)
+    q = rng.randn(2, Nq, C).astype(np.float32)
+    p = rng.randn(2, N, C).astype(np.float32)
+    p[:, 90] = p[:, 4]                     # a duplicate: an exact tie
+    got_d, got_i = K.knn(_torch(q), _torch(p), 64)
+    assert got_i.shape == (2, Nq, 64)
+    want_i = np.asarray(JG.knn_idx(jnp.asarray(q), jnp.asarray(p), 64))
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    want_d, want_i = PK.knn_pallas(jnp.asarray(q), jnp.asarray(p), 64)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    # the Pallas kernel's matmul form of the distance against the port's
+    # left-to-right elementwise form: f32 rounding of C-term sums
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,N,bw", [(2, 200, 0.1), (1, 512, 0.2),
+                                    (3, 100, 0.4)])
+def test_kde_density_pair_matches_pallas(B, N, bw):
+    """The KDE pair's plain versions against the Pallas kernels (the
+    shapes of `tests/test_pallas_kernels.py::TestKDEDensity`)."""
+    rng = np.random.RandomState(21)
+    x = rng.randn(B, N, 3).astype(np.float32)
+    g = rng.randn(B, N).astype(np.float32)
+    want = np.asarray(PK.kde_density_pallas(jnp.asarray(x), bw))
+    got = K.kde_density(_torch(x), bw)
+    assert got.dtype == torch.float32 and got.shape == (B, N)
+    # both take the subtract form of the distance; the port sums in f64,
+    # the Pallas kernel in f32 lanes: a few f32 ulps
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    want_g = np.asarray(PK.kde_density_bwd_pallas(jnp.asarray(x), bw,
+                                                  jnp.asarray(g)))
+    got_g = K.kde_density_bwd(_torch(x), bw, _torch(g)).numpy()
+    # the Pallas kernel's expanded form x_p (...) - (...) cancels (up to
+    # ~1e-5 relative at bandwidth 0.1); the port sums the product form
+    assert np.linalg.norm(got_g - want_g) <= 3e-5 * np.linalg.norm(want_g)
+    # bf16 coordinates are widened exactly
+    xb = _bf16_values(x)
+    np.testing.assert_array_equal(
+        K.kde_density(_torch(xb, torch.bfloat16), bw).numpy(),
+        K.kde_density(_torch(xb), bw).numpy())
+
+
+def _blend_inputs(rng, B, Cn, N):
+    """The blend tests' inputs of the JAX package (`tests/
+    test_pallas_kernels.py`, `_inputs`): centres on cloud points (the
+    d = 0 corner), the transposed field [B, N, Cn]."""
+    from hitadv_tpu.ops import geometry as JG
+
+    ori = rng.randn(B, N, 3).astype(np.float32)
+    sel = rng.randint(0, N, size=(B, Cn))
+    central = np.stack([ori[b, sel[b]] for b in range(B)])
+    delta = (0.1 + rng.rand(B, Cn) * 1.1).astype(np.float32)
+    pert = (rng.randn(B, Cn, 3) * 0.1).astype(np.float32)
+    negdt = np.asarray(jnp.swapaxes(JG.neg_gaussian_field(
+        jnp.asarray(central), jnp.asarray(ori)), 1, 2))
+    return negdt, delta, pert
+
+
+@pytest.mark.parametrize("B,Cn,N", [(2, 12, 200), (1, 192, 512),
+                                    (3, 8, 100), (2, 15, 130)])
+def test_gaussian_blend_negdt_pair_matches_pallas(B, Cn, N):
+    rng = np.random.RandomState(22)
+    negdt, delta, pert = _blend_inputs(rng, B, Cn, N)
+    g_num = rng.randn(B, N, 3).astype(np.float32)
+    g_deno = rng.randn(B, N).astype(np.float32)
+    args = [jnp.asarray(a) for a in (negdt, delta, pert)]
+    want_num, want_deno = PK.gaussian_blend_negdt_pallas(*args)
+    num, deno = K.gaussian_blend_negdt(*(_torch(a) for a in (negdt, delta,
+                                                             pert)))
+    # the same f32 ker on both sides; the Pallas dot sums in f32, the
+    # port in f64: f32 rounding of Cn-term sums
+    np.testing.assert_allclose(num.numpy(), np.asarray(want_num), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(deno.numpy(), np.asarray(want_deno),
+                               rtol=1e-5, atol=1e-6)
+    want_gd, want_gp = PK.gaussian_blend_negdt_bwd_pallas(
+        *args, jnp.asarray(g_num), jnp.asarray(g_deno))
+    gd, gp = K.gaussian_blend_negdt_bwd(*(_torch(a) for a in (
+        negdt, delta, pert, g_num, g_deno)))
+    assert gd.shape == (B, Cn) and gp.shape == (B, Cn, 3)
+    # N-term sums over the cloud, f32 on the TPU side and f64 here
+    for got, want in ((gd, want_gd), (gp, want_gp)):
+        want = np.asarray(want)
+        assert np.linalg.norm(got.numpy() - want) <= 1e-5 * np.linalg.norm(
+            want)
 
 
 # ---------------------------------------------------------------------------
