@@ -4,13 +4,13 @@ A `hitadv_tpu` parameter tree is nested dicts of arrays in the
 channels-last layout both packages use (``w`` as ``[Cin, Cout]``, ``b``,
 and BN ``scale/bias/mean/var``). ``jax.tree_util.tree_map(np.asarray,
 params)`` gives it as numpy, and ``hitadv_tpu.utils.checkpoint.
-save_params`` pickles exactly that. Loaded here, the same tree makes
-both packages compute the same function.
+save_params`` pickles exactly that (`hitadv_torch.utils.checkpoint.
+load_params` reads it). Loaded here, the same tree makes both packages
+compute the same function.
 """
 
 from __future__ import annotations
 
-import pickle
 from typing import Dict, Mapping
 
 import numpy as np
@@ -31,11 +31,3 @@ def params_from_numpy(tree: Mapping, device="cuda") -> Dict:
             out[k] = torch.from_numpy(
                 np.array(v, dtype=np.float32, copy=True)).to(dev)
     return out
-
-
-def load_numpy_params(path: str) -> Dict:
-    """Read a parameter tree pickled by the JAX package's
-    ``save_params`` (numpy arrays only). Only load files this project
-    wrote: unpickling runs code."""
-    with open(path, "rb") as f:
-        return pickle.load(f)

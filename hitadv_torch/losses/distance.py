@@ -1,6 +1,7 @@
 """Distance losses between point clouds (port of
 `hitadv_tpu/losses/distance.py`): the L2, Chamfer, Hausdorff and kNN
-outlier distances of the CW attacks, and the curvature terms of HiT-ADV.
+outlier distances of the CW attacks, the curvature terms of HiT-ADV, and
+the curvature-std distance of the evaluation.
 
 Clouds are ``[B, N, 3]``; every loss returns a per-example ``[B]``
 vector. The set distances run on the k=1 kNN (`geometry.knn_points`),
@@ -104,3 +105,13 @@ def get_kappa_std(pc: torch.Tensor, normal: torch.Tensor,
     nn_kappa = torch.gather(kappa, 1, idx.reshape(B, -1).long()
                             ).reshape(idx.shape)             # [B, N, k]
     return torch.std(nn_kappa, dim=-1, correction=1)
+
+
+def curv_std_dist(ori_pc: torch.Tensor, adv_pc: torch.Tensor,
+                  ori_normal: torch.Tensor, k: int = 5) -> torch.Tensor:
+    """L2 between the clean and adversarial kappa-std fields ``[B]`` (the
+    imperceptibility metric; reference :236-245). Both fields take the
+    clean normals, as the reference does."""
+    ori_std = get_kappa_std(ori_pc, ori_normal, k)
+    adv_std = get_kappa_std(adv_pc, ori_normal, k)
+    return torch.linalg.vector_norm(ori_std - adv_std, dim=-1)

@@ -133,3 +133,16 @@ class DGCNN(nn.Module):
         g = F.leaky_relu(F.linear_bn(p["linear1"], p["bn6"], g, cd))
         g = F.leaky_relu(F.linear_bn(p["linear2"], p["bn7"], g, cd))
         return F.linear(p["linear3"], g, cd)
+
+
+# The reference's torch state_dict layout (convN is Sequential(conv, bn,
+# leaky) -> ".0"/".1") as the tree's paths (JAX :164-172).
+TORCH_SPEC = {
+    **{f"conv{i}": (f"conv{i}.0", "conv") for i in range(1, 6)},
+    **{f"bn{i}": (f"conv{i}.1", "bn") for i in range(1, 6)},
+    "linear1": ("linear1", "linear"),
+    "bn6": ("bn6", "bn"),
+    "linear2": ("linear2", "linear"),
+    "bn7": ("bn7", "bn"),
+    "linear3": ("linear3", "linear"),
+}

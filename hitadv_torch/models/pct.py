@@ -175,3 +175,49 @@ class PCT(nn.Module):
         g = F.leaky_relu(F.linear_bn(p["linear1"], p["bn6"], g, cd))
         g = F.leaky_relu(F.linear_bn(p["linear2"], p["bn7"], g, cd))
         return F.linear(p["linear3"], g, cd)
+
+
+def _local_spec(tp, tr):
+    return {
+        f"{tr}/conv1": (f"{tp}.conv1", "conv"),
+        f"{tr}/bn1": (f"{tp}.bn1", "bn"),
+        f"{tr}/conv2": (f"{tp}.conv2", "conv"),
+        f"{tr}/bn2": (f"{tp}.bn2", "bn"),
+    }
+
+
+def _sa_spec(tp, tr):
+    # q_conv and k_conv are tied in torch; q_conv's tensor is canonical
+    return {
+        f"{tr}/qk_conv": (f"{tp}.q_conv", "conv"),
+        f"{tr}/v_conv": (f"{tp}.v_conv", "conv"),
+        f"{tr}/trans_conv": (f"{tp}.trans_conv", "conv"),
+        f"{tr}/after_norm": (f"{tp}.after_norm", "bn"),
+    }
+
+
+# The reference's torch state_dict layout as the tree's paths (JAX
+# :197-238).
+TORCH_SPEC = {
+    "conv1": ("conv1", "conv"),
+    "bn1": ("bn1", "bn"),
+    "conv2": ("conv2", "conv"),
+    "bn2": ("bn2", "bn"),
+    **_local_spec("gather_local_0", "gather0"),
+    **_local_spec("gather_local_1", "gather1"),
+    "pt_conv1": ("pt_last.conv1", "conv"),
+    "pt_bn1": ("pt_last.bn1", "bn"),
+    "pt_conv2": ("pt_last.conv2", "conv"),
+    "pt_bn2": ("pt_last.bn2", "bn"),
+    **_sa_spec("pt_last.sa1", "sa1"),
+    **_sa_spec("pt_last.sa2", "sa2"),
+    **_sa_spec("pt_last.sa3", "sa3"),
+    **_sa_spec("pt_last.sa4", "sa4"),
+    "conv_fuse": ("conv_fuse.0", "conv"),
+    "bn_fuse": ("conv_fuse.1", "bn"),
+    "linear1": ("linear1", "linear"),
+    "bn6": ("bn6", "bn"),
+    "linear2": ("linear2", "linear"),
+    "bn7": ("bn7", "bn"),
+    "linear3": ("linear3", "linear"),
+}

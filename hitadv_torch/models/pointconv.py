@@ -181,3 +181,37 @@ class PointConv(nn.Module):
         g = F.relu(F.linear_bn(p["fc1"], p["bn1"], g, cd))
         g = F.relu(F.linear_bn(p["fc2"], p["bn2"], g, cd))
         return F.linear(p["fc3"], g, cd)
+
+
+def _stage_spec(tp, tr, n_mlp):
+    spec = {}
+    for i in range(n_mlp):
+        spec[f"{tr}/mlp/conv{i}"] = (f"{tp}.mlp_convs.{i}", "conv")
+        spec[f"{tr}/mlp/bn{i}"] = (f"{tp}.mlp_bns.{i}", "bn")
+    for i in range(3):  # weightnet 3->8->8->16
+        spec[f"{tr}/weightnet/conv{i}"] = (
+            f"{tp}.weightnet.mlp_convs.{i}", "conv")
+        spec[f"{tr}/weightnet/bn{i}"] = (
+            f"{tp}.weightnet.mlp_bns.{i}", "bn")
+    for i in range(3):  # densitynet 1->16->8->1
+        spec[f"{tr}/densitynet/conv{i}"] = (
+            f"{tp}.densitynet.mlp_convs.{i}", "conv")
+        spec[f"{tr}/densitynet/bn{i}"] = (
+            f"{tp}.densitynet.mlp_bns.{i}", "bn")
+    spec[f"{tr}/linear"] = (f"{tp}.linear", "linear")
+    spec[f"{tr}/bn_linear"] = (f"{tp}.bn_linear", "bn")
+    return spec
+
+
+# The reference's torch state_dict layout as the tree's paths (JAX
+# :256-285).
+TORCH_SPEC = {
+    **_stage_spec("sa1", "sa1", 3),
+    **_stage_spec("sa2", "sa2", 3),
+    **_stage_spec("sa3", "sa3", 3),
+    "fc1": ("fc1", "linear"),
+    "bn1": ("bn1", "bn"),
+    "fc2": ("fc2", "linear"),
+    "bn2": ("bn2", "bn"),
+    "fc3": ("fc3", "linear"),
+}

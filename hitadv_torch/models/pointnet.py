@@ -172,3 +172,39 @@ def _tree_to(tree: Mapping, device) -> Dict:
     return {k: (_tree_to(v, device) if isinstance(v, Mapping)
                 else torch.as_tensor(v).to(device))
             for k, v in tree.items()}
+
+
+def _stn_spec(torch_prefix: str, tree_prefix: str):
+    return {
+        f"{tree_prefix}/conv/conv0": (f"{torch_prefix}.conv1", "conv"),
+        f"{tree_prefix}/conv/bn0": (f"{torch_prefix}.bn1", "bn"),
+        f"{tree_prefix}/conv/conv1": (f"{torch_prefix}.conv2", "conv"),
+        f"{tree_prefix}/conv/bn1": (f"{torch_prefix}.bn2", "bn"),
+        f"{tree_prefix}/conv/conv2": (f"{torch_prefix}.conv3", "conv"),
+        f"{tree_prefix}/conv/bn2": (f"{torch_prefix}.bn3", "bn"),
+        f"{tree_prefix}/fc1": (f"{torch_prefix}.fc1", "linear"),
+        f"{tree_prefix}/bn4": (f"{torch_prefix}.bn4", "bn"),
+        f"{tree_prefix}/fc2": (f"{torch_prefix}.fc2", "linear"),
+        f"{tree_prefix}/bn5": (f"{torch_prefix}.bn5", "bn"),
+        f"{tree_prefix}/fc3": (f"{torch_prefix}.fc3", "linear"),
+    }
+
+
+# The reference's torch state_dict layout (model/pointnet_cls.get_model and
+# model/feature_models.PointNetFeatureModel, identical keys) as the tree's
+# paths, for `utils.checkpoint.convert_state_dict` (JAX :72-105).
+TORCH_SPEC = {
+    **_stn_spec("feat.stn", "stn"),
+    **_stn_spec("feat.fstn", "fstn"),
+    "conv1": ("feat.conv1", "conv"),
+    "bn1": ("feat.bn1", "bn"),
+    "conv2": ("feat.conv2", "conv"),
+    "bn2": ("feat.bn2", "bn"),
+    "conv3": ("feat.conv3", "conv"),
+    "bn3": ("feat.bn3", "bn"),
+    "head_fc1": ("fc1", "linear"),
+    "head_bn1": ("bn1", "bn"),
+    "head_fc2": ("fc2", "linear"),
+    "head_bn2": ("bn2", "bn"),
+    "head_fc3": ("fc3", "linear"),
+}

@@ -152,3 +152,26 @@ class PointNet2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits only: the reference's ``pointnet2.apply``."""
         return self.apply_full(x)[0]
+
+
+def _sa_spec(torch_prefix: str, tree_prefix: str, n_layers: int):
+    spec = {}
+    for i in range(n_layers):
+        spec[f"{tree_prefix}/conv{i}"] = (
+            f"{torch_prefix}.mlp_convs.{i}", "conv")
+        spec[f"{tree_prefix}/bn{i}"] = (f"{torch_prefix}.mlp_bns.{i}", "bn")
+    return spec
+
+
+# The reference's torch state_dict layout as the tree's paths (JAX
+# :219-237).
+TORCH_SPEC = {
+    **_sa_spec("sa1", "sa1", 3),
+    **_sa_spec("sa2", "sa2", 3),
+    **_sa_spec("sa3", "sa3", 3),
+    "fc1": ("fc1", "linear"),
+    "bn1": ("bn1", "bn"),
+    "fc2": ("fc2", "linear"),
+    "bn2": ("bn2", "bn"),
+    "fc3": ("fc3", "linear"),
+}

@@ -29,16 +29,17 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 SOURCES = ("max_linear_fwd", "max_linear_dh", "gather_rows", "knn", "nn",
            "fps", "scatter_add_rows", "graph_max_pool", "ball_query",
-           "gather_group", "kde_density", "gaussian_blend")
+           "gather_group", "kde_density", "gaussian_blend",
+           "gaussian_blend_fused")
 
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # kNN, FPS and the ball query select indices from distances: without
 # contraction into FMAs every product and sum rounds as the plain PyTorch
 # version's separate elementwise ops do, so both give the same bits and
-# indices. (kde_density.cu and gaussian_blend.cu need no flag: they round
-# each term's operations through the __f*_rn intrinsics, which are never
-# contracted.)
+# indices. (kde_density.cu, gaussian_blend.cu and gaussian_blend_fused.cu
+# need no flag: they round each term's operations through the __f*_rn
+# intrinsics, which are never contracted.)
 EXTRA_FLAGS = {"knn": ("-fmad=false",), "nn": ("-fmad=false",),
                "fps": ("-fmad=false",), "ball_query": ("-fmad=false",)}
 

@@ -5,16 +5,16 @@ attacks, DGCNN, PointNet++, PCT and PointConv run: distances, gathers (by
 rows and grouped neighbours-major) and their scatter-add transposes, kNN
 (coordinate and feature space), farthest point sampling, the ball query,
 the set-abstraction front ends, the graph max-pool, PointConv's KDE
-density, the lower median and the Gaussian-kernel blend (from the clouds,
-or from the hoisted field through its kernel pair). Clouds are
-``[B, N, C]``.
+density, the lower median and the Gaussian-kernel blend (from the clouds
+through the field or through the fused kernel pair, or from the hoisted
+field through its kernel pair). Clouds are ``[B, N, C]``.
 
 `index_points`, `gather_group_nm`, `knn_points`, `knn_idx`,
 `farthest_point_sample`, `query_ball_point`, `graph_max_pool`,
-`kde_density` and `gaussian_blend_negdt` go through the hand-written
-kernels of `ops/kernels.py` (the kernel on a CUDA tensor, its plain
-version on a CPU tensor), in both directions. The rest is plain PyTorch,
-as it is plain XLA in the reference.
+`kde_density`, `gaussian_blend_negdt` and `gaussian_blend_fused` go
+through the hand-written kernels of `ops/kernels.py` (the kernel on a
+CUDA tensor, its plain version on a CPU tensor), in both directions.
+The rest is plain PyTorch, as it is plain XLA in the reference.
 """
 
 from __future__ import annotations
@@ -368,6 +368,36 @@ def gaussian_blend_negdt(negdt: torch.Tensor, delta: torch.Tensor,
     directions -> (num ``[B, N, 3]``, deno ``[B, N]``)."""
     return _BlendNegdt.apply(negdt.contiguous(), delta.contiguous(),
                              pert.contiguous())
+
+
+class _BlendFused(torch.autograd.Function):
+    """The blend from the clouds through the fused kernel pair (reference
+    custom VJP, :954-992): the backward recomputes every term and gives
+    the cotangents of all four inputs."""
+
+    @staticmethod
+    def forward(ctx, central, ori, delta, pert):
+        ctx.save_for_backward(central, ori, delta, pert)
+        return K.gaussian_blend_fused(central, ori, delta, pert)
+
+    @staticmethod
+    def backward(ctx, g_num, g_deno):
+        grads = K.gaussian_blend_fused_bwd(*ctx.saved_tensors,
+                                           g_num.contiguous(),
+                                           g_deno.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def gaussian_blend_fused(central: torch.Tensor, ori: torch.Tensor,
+                         delta: torch.Tensor, pert: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The memory-lean `gaussian_blend` (reference :954-971): the same
+    (num ``[B, N, 3]``, deno ``[B, N]``) through
+    `kernels.gaussian_blend_fused` in both directions, which never hold
+    the ``[B, Cn, N]`` field; for shapes whose field does not fit."""
+    return _BlendFused.apply(central.contiguous(), ori.contiguous(),
+                             delta.contiguous(), pert.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,9 @@ from hitadv_tpu.ops import geometry as JG
 from hitadv_torch import losses as L
 from hitadv_torch.attacks import CWConfig, CWKNNConfig, make_adv_fn
 from hitadv_torch.attacks import make_cw_knn, make_cw_perturb
-from hitadv_torch.convert import load_numpy_params, params_from_numpy
+from hitadv_torch.convert import params_from_numpy
 from hitadv_torch.models import PointNet
+from hitadv_torch.utils.checkpoint import load_params
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 PKL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -222,7 +223,7 @@ def test_cw_uknn_asr_on_trained_victim_matches_jax_run():
     """CW-UKNN on the committed trained victim (64 clouds x 64 points, a
     shortened 100-step schedule at lr 1e-2, budget 0.2), same initial
     noise on both sides: ASR within one example of the JAX run."""
-    tree = load_numpy_params(PKL)
+    tree = load_params(PKL)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     jfn = jax.jit(lambda x: JP.apply(params, x))
     model = PointNet(params=params_from_numpy(tree, "cpu"), device="cpu")

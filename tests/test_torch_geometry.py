@@ -359,3 +359,44 @@ def test_gaussian_blend_negdt_grads_all_args():
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(deno.detach().numpy(), field_deno.numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,Cn,N", [(2, 12, 130), (1, 192, 300)])
+def test_gaussian_blend_fused_values_and_all_four_grads(B, Cn, N):
+    """`geometry.gaussian_blend_fused` (an autograd Function over the fused
+    pair) against ``jax.vjp`` of the JAX package's `gaussian_blend_fused`
+    (its XLA program on the CPU): values and the cotangents of the
+    centres, the cloud, the widths and the translations. Centres are cloud
+    points (the d = 0 corner, where both keep the product form)."""
+    rng = np.random.RandomState(33)
+    ori = rng.randn(B, N, 3).astype(np.float32)
+    sel = rng.randint(0, N, size=(B, Cn))
+    central = np.stack([ori[b, sel[b]] for b in range(B)])
+    delta = (0.1 + rng.rand(B, Cn) * 1.1).astype(np.float32)
+    pert = (rng.randn(B, Cn, 3) * 0.1).astype(np.float32)
+    g_num = rng.randn(B, N, 3).astype(np.float32)
+    g_deno = rng.randn(B, N).astype(np.float32)
+    args = (central, ori, delta, pert)
+    (jnum, jdeno), vjp = jax.vjp(JG.gaussian_blend_fused,
+                                 *[jnp.asarray(a) for a in args])
+    jgrads = vjp((jnp.asarray(g_num), jnp.asarray(g_deno)))
+    ts = [_t(a, grad=True) for a in args]
+    num, deno = G.gaussian_blend_fused(*ts)
+    grads = torch.autograd.grad((num, deno), ts, (_t(g_num), _t(g_deno)))
+    # the XLA program sums f32 products in f32 (HIGHEST einsum, autodiff
+    # through sqrt and exp), the port exact f64 products in f64
+    np.testing.assert_allclose(num.detach().numpy(), np.asarray(jnum),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(deno.detach().numpy(), np.asarray(jdeno),
+                               rtol=1e-5, atol=1e-6)
+    for got, want, name in zip(grads, jgrads,
+                               ("central", "ori", "delta", "pert")):
+        want = np.asarray(want)
+        assert got.shape == want.shape, name
+        assert np.linalg.norm(got.numpy() - want) <= 1e-5 * np.linalg.norm(
+            want), name
+    # only the inputs that need a gradient get one
+    leaves = [_t(a, grad=(i == 3)) for i, a in enumerate(args)]
+    num, deno = G.gaussian_blend_fused(*leaves)
+    (num.sum() + deno.sum()).backward()
+    assert leaves[3].grad is not None and leaves[0].grad is None

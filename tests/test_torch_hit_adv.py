@@ -23,9 +23,10 @@ from hitadv_tpu.ops import geometry as JG
 from hitadv_torch import losses as L
 from hitadv_torch.attacks import base as B
 from hitadv_torch.attacks import hit_adv as H
-from hitadv_torch.convert import load_numpy_params, params_from_numpy
+from hitadv_torch.convert import params_from_numpy
 from hitadv_torch.data import synthetic_clouds as port_synthetic_clouds
 from hitadv_torch.models import PointNet
+from hitadv_torch.utils.checkpoint import load_params
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 PKL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -241,7 +242,7 @@ def test_trained_victim_asr_matches_jax_run():
     """ASR on the committed trained victim, same pinned draws on both
     sides (tests/test_asr_regression.py's configuration), within one
     example of the JAX run."""
-    tree = load_numpy_params(PKL)
+    tree = load_params(PKL)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     jfn = jax.jit(lambda x: JP.apply(params, x))
     model = PointNet(params=params_from_numpy(tree, "cpu"), device="cpu")

@@ -333,7 +333,10 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     negdt, delta, pert = -torch.rand(2, 40, 5), torch.rand(2, 5) + 0.1, x[:, :5]
     num, deno = K.gaussian_blend_negdt(negdt, delta, pert)
     K.gaussian_blend_negdt_bwd(negdt, delta, pert, num, deno)
-    assert len(K.LAUNCHES) == 16
+    central = x[:, :5].contiguous()
+    num, deno = K.gaussian_blend_fused(central, x, delta, pert)
+    K.gaussian_blend_fused_bwd(central, x, delta, pert, num, deno)
+    assert len(K.LAUNCHES) == 18
     assert all(v == 0 for v in K.LAUNCHES.values())
 
 
@@ -548,6 +551,69 @@ def test_gaussian_blend_negdt_pair_matches_pallas(B, Cn, N):
         want = np.asarray(want)
         assert np.linalg.norm(got.numpy() - want) <= 1e-5 * np.linalg.norm(
             want)
+
+
+@pytest.mark.parametrize("B,Cn,N", [(2, 12, 200), (1, 192, 512),
+                                    (2, 15, 130)])
+def test_gaussian_blend_fused_pair_matches_pallas(B, Cn, N):
+    """The fused pair's plain versions against the Pallas kernels, at
+    shapes that pad Cn to 8 and N to 128 on the TPU side; centres on cloud
+    points (the d = 0 corner)."""
+    rng = np.random.RandomState(23)
+    ori = rng.randn(B, N, 3).astype(np.float32)
+    sel = rng.randint(0, N, size=(B, Cn))
+    central = np.stack([ori[b, sel[b]] for b in range(B)])
+    delta = (0.1 + rng.rand(B, Cn) * 1.1).astype(np.float32)
+    pert = (rng.randn(B, Cn, 3) * 0.1).astype(np.float32)
+    g_num = rng.randn(B, N, 3).astype(np.float32)
+    g_deno = rng.randn(B, N).astype(np.float32)
+    args = (central, ori, delta, pert)
+    want_num, want_deno = PK.gaussian_blend_pallas(
+        *(jnp.asarray(a) for a in args))
+    num, deno = K.gaussian_blend_fused(*(_torch(a) for a in args))
+    assert num.shape == (B, N, 3) and deno.shape == (B, N)
+    # the same f32 terms on both sides; the Pallas dot sums in f32, the
+    # port exact f64 products in f64: f32 rounding of Cn-term sums
+    np.testing.assert_allclose(num.numpy(), np.asarray(want_num), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(deno.numpy(), np.asarray(want_deno),
+                               rtol=1e-5, atol=1e-6)
+    want = PK.gaussian_blend_bwd_pallas(
+        *(jnp.asarray(a) for a in args + (g_num, g_deno)))
+    got = K.gaussian_blend_fused_bwd(*(_torch(a) for a in args
+                                       + (g_num, g_deno)))
+    # sums over Cn (g_ori) and over the cloud (the rest), f32 on the TPU
+    # side and f64 here; the TPU backward also forms ker by a reciprocal
+    # multiply where the port divides (one f32 rounding of the exponent)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.linalg.norm(g.numpy() - w) <= 1e-5 * np.linalg.norm(w)
+
+
+def test_gaussian_blend_fused_plain_chunks_sum_alike():
+    """The plain versions walk N in chunks (so that they run where the
+    field would not fit); any chunking gives the same bits here."""
+    rng = np.random.RandomState(24)
+    ori = _torch(rng.randn(2, 300, 3).astype(np.float32))
+    args = (ori[:, ::25].contiguous(), ori,
+            _torch((0.1 + rng.rand(2, 12)).astype(np.float32)),
+            _torch(rng.randn(2, 12, 3).astype(np.float32) * 0.1))
+    gs = (_torch(rng.randn(2, 300, 3).astype(np.float32)),
+          _torch(rng.randn(2, 300).astype(np.float32)))
+    whole = (K.gaussian_blend_fused_plain(*args)
+             + K.gaussian_blend_fused_bwd_plain(*args, *gs))
+    real = K._fused_chunks
+    K._fused_chunks = lambda B, N, Cn: [slice(n0, min(N, n0 + 37))
+                                        for n0 in range(0, N, 37)]
+    try:
+        chunked = (K.gaussian_blend_fused_plain(*args)
+                   + K.gaussian_blend_fused_bwd_plain(*args, *gs))
+    finally:
+        K._fused_chunks = real
+    assert len(real(2, 300, 12)) == 1
+    for a, b in zip(whole, chunked):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
