@@ -24,33 +24,40 @@ import torch
 from hitadv_torch import resolve_device
 from hitadv_torch.config import EvalConfig, add_config_flags, config_from_args
 
-# the JAX driver's attack names that the port does not have yet
-_LATER_ATTACKS = ("fgsm", "ifgsm", "mifgsm", "pgd", "fgsm-rs", "fgm-l2",
-                  "ifgm-l2", "cw-lpips", "aof", "taof", "uaeaof", "advpc",
-                  "uadvpc", "add", "add-cluster", "add-object", "geoa3",
-                  "geoa3-untarget", "drop")
-
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
+    """The error for a setting that `ROADMAP.md` §1's item titled ``item``
+    brings (named by title: a renumbering of the items leaves it true)."""
     return NotImplementedError(
         f"hitadv_torch.eval: {what} is not ported yet (ROADMAP.md §1, "
         f"{item})")
 
 
+# attack names -> the title of the ROADMAP.md §1 item that ports them
+_ATTACK_ITEMS = {
+    **dict.fromkeys(("fgsm", "ifgsm", "mifgsm", "pgd", "fgsm-rs", "fgm-l2",
+                     "ifgm-l2", "drop"), "FGM family and SaliencyDrop"),
+    **dict.fromkeys(("geoa3", "geoa3-untarget"), "GeoA3"),
+    **dict.fromkeys(("add", "add-cluster", "add-object"), "Add attacks"),
+    **dict.fromkeys(("cw-lpips", "aof", "taof", "uaeaof", "advpc",
+                     "uadvpc"), "Autoencoder attacks and CW-LPIPS")}
+
+
 def check_ported(cfg: EvalConfig) -> None:
     """Raise `NotImplementedError` for every setting besides the attack
     that the port does not run yet (`build_attack` checks the attack)."""
+    if cfg.model == "geoa3_pointnet":
+        raise _not_ported("--model geoa3_pointnet", "GeoA3")
     if cfg.dataset in ("ModelNet", "ShapeNetPart"):
-        raise _not_ported(f"--dataset {cfg.dataset}",
-                          "item 11, data and runtime")
+        raise _not_ported(f"--dataset {cfg.dataset}", "Data loaders")
     if cfg.defense_method or cfg.eval_defense_method:
         raise _not_ported("--defense_method / --eval_defense_method",
-                          "item 9, defense.py")
+                          "Defenses")
     for flag, value in (("--restarts", cfg.restarts),
                         ("--n_devices", cfg.n_devices),
                         ("--sp_devices", cfg.sp_devices)):
         if value and value > 1:
-            raise _not_ported(flag, "item 12, parallelism")
+            raise _not_ported(flag, "Parallelism")
 
 
 def build_model(cfg: EvalConfig) -> torch.nn.Module:
@@ -139,9 +146,9 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
             logits_fn, targeted_margin if targeted else untargeted_margin,
             losses.chamfer_knn_dist, clip_fn,
             attacks.CWKNNConfig(targeted=targeted), device=dev)
-    if name in _LATER_ATTACKS:
+    if name in _ATTACK_ITEMS:
         raise _not_ported(f"the attack {cfg.attack_type!r}",
-                          "item 9, other attacks and losses")
+                          _ATTACK_ITEMS[name])
     raise ValueError(f"unknown attack_type {cfg.attack_type!r}")
 
 

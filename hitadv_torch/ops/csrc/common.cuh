@@ -26,94 +26,178 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-constexpr int CSR_THREADS = 1024;
-
-// One block per batch. idx [B, M] (int32 or int64). Writes
+// The counting sort. For idx [B, M] (int32 or int64) it writes
 //   off [B, N + 1]: off[b, n] = number of sources m with idx[b, m] < n;
 //   order [B, M]:  the sources m of destination n, ascending, at
 //                  order[b, off[b, n] .. off[b, n + 1]).
-// Indices outside [0, N) are dropped (they land in no row).
-// Needs (N + 1) * 4 bytes of dynamic shared memory.
+// Indices outside [0, N) are dropped (they land in no row). The arrays
+// are fully determined by idx, so any correct build gives the same bits.
 //
-// Counting uses integer shared-memory atomics (the counts do not depend
-// on their order). The placement is stable: warp 0 walks the sources 32
-// at a time in ascending m, ranks each among its equal-destination peers
-// of the same 32 with __match_any_sync, and the highest peer advances
-// the destination's cursor.
+// Three passes over chunks of CSR_CHUNK consecutive sources, a block of
+// CSR_THREADS (two sources a thread) per (chunk, batch), so the grid grows
+// with M (320 blocks at DGCNN's M = 20480, B = 16, all resident at once)
+// instead of one block per batch:
+//   1. count: each chunk counts its sources per destination with
+//      shared-memory integer atomics into part[b, chunk, n];
+//   2. scan: one block per batch turns part into exclusive bases in
+//      (destination, chunk) order, n-major: part[b, c, n] = the first slot
+//      of chunk c's sources of n; off[b, n] = part[b, 0, n];
+//   3. place: each chunk loads its bases into shared cursors and places
+//      its sources stably. A warp owns 64 consecutive sources, two groups
+//      of 32, and ranks each among its equal-destination peers with
+//      __match_any_sync at once; then the warps take turns in ascending
+//      order (16 turns, a block barrier each), and in its turn a warp
+//      writes each group's sources at cursor + rank, the highest peer
+//      advancing the cursor.
+// Scratch: part [B, csr_chunks(M), N] int32. Passes 1 and 3 need N * 4
+// bytes of dynamic shared memory, so N <= 49152 (192 KB of the 227 KB).
+constexpr int CSR_THREADS = 512;
+constexpr int CSR_CHUNK = 2 * CSR_THREADS;
+constexpr int CSR_SCAN_THREADS = 1024;
+
+inline int csr_chunks(int M) {
+  return M > 0 ? (M + CSR_CHUNK - 1) / CSR_CHUNK : 1;
+}
+
+template <typename I>
+__device__ __forceinline__ int csr_dst(const I* ib, int m, int M, int N) {
+  const long long v = m < M ? (long long)ib[m] : -1;
+  return v >= 0 && v < N ? (int)v : -1;
+}
+
 template <typename I>
 __global__ void __launch_bounds__(CSR_THREADS)
-csr_build_kernel(const I* __restrict__ idx, int* __restrict__ off,
-                 int* __restrict__ order, int M, int N) {
-  extern __shared__ int cur[];   // [N + 1]: counts, then cursors
-  __shared__ int part[CSR_THREADS];
-  const int b = blockIdx.x;
+csr_count_kernel(const I* __restrict__ idx, int* __restrict__ part, int M,
+                 int N) {
+  extern __shared__ int cnt[];   // [N]
+  const int b = blockIdx.y;
   const int t = threadIdx.x;
   const I* ib = idx + (size_t)b * M;
-
-  for (int n = t; n <= N; n += CSR_THREADS) cur[n] = 0;
+  for (int n = t; n < N; n += CSR_THREADS) cnt[n] = 0;
   __syncthreads();
-  for (int m = t; m < M; m += CSR_THREADS) {
-    const long long v = (long long)ib[m];
-    if (v >= 0 && v < N) atomicAdd(&cur[v], 1);
+#pragma unroll
+  for (int g = 0; g < CSR_CHUNK / CSR_THREADS; ++g) {
+    const int d = csr_dst(ib, blockIdx.x * CSR_CHUNK + g * CSR_THREADS + t, M,
+                          N);
+    if (d >= 0) atomicAdd(&cnt[d], 1);
   }
   __syncthreads();
+  int* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * N;
+  for (int n = t; n < N; n += CSR_THREADS) pb[n] = cnt[n];
+}
 
-  // exclusive scan of the counts: each thread sums a contiguous chunk,
-  // a Hillis-Steele scan combines the chunk sums
-  const int per = (N + CSR_THREADS - 1) / CSR_THREADS;
+__global__ void __launch_bounds__(CSR_SCAN_THREADS)
+csr_scan_kernel(int* __restrict__ part, int* __restrict__ off, int chunks,
+                int N) {
+  __shared__ int warp_sum[CSR_SCAN_THREADS / 32];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  int* pb = part + (size_t)b * chunks * N;
+  // each thread takes a contiguous range of destinations
+  const int per = (N + CSR_SCAN_THREADS - 1) / CSR_SCAN_THREADS;
   const int lo = min(N, t * per);
   const int hi = min(N, lo + per);
   int s = 0;
-  for (int n = lo; n < hi; ++n) s += cur[n];
-  part[t] = s;
-  __syncthreads();
-  for (int d = 1; d < CSR_THREADS; d <<= 1) {
-    const int v = t >= d ? part[t - d] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
+  for (int n = lo; n < hi; ++n)
+    for (int c = 0; c < chunks; ++c) s += pb[(size_t)c * N + n];
+  // exclusive scan of the range sums: in each warp by shuffles, then the
+  // warp totals by warp 0
+  int x = s;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
   }
-  int run = part[t] - s;
-  for (int n = lo; n < hi; ++n) {
-    const int c = cur[n];
-    cur[n] = run;
-    run += c;
-  }
-  if (t == CSR_THREADS - 1) cur[N] = part[t];
+  if (lane == 31) warp_sum[w] = x;
   __syncthreads();
+  if (w == 0) {
+    int v = warp_sum[lane];
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += y;
+    }
+    warp_sum[lane] = v;
+  }
+  __syncthreads();
+  int run = x - s + (w > 0 ? warp_sum[w - 1] : 0);
   int* ob = off + (size_t)b * (N + 1);
-  for (int n = t; n <= N; n += CSR_THREADS) ob[n] = cur[n];
-  __syncthreads();   // the offsets are stored before the cursors move
+  for (int n = lo; n < hi; ++n) {
+    ob[n] = run;
+    for (int c = 0; c < chunks; ++c) {
+      int* p = pb + (size_t)c * N + n;
+      const int v = *p;
+      *p = run;
+      run += v;
+    }
+  }
+  // the last thread's range ends at N: its run is the total
+  if (t == CSR_SCAN_THREADS - 1) ob[N] = run;
+}
 
-  if (t >= 32) return;
+template <typename I>
+__global__ void __launch_bounds__(CSR_THREADS)
+csr_place_kernel(const I* __restrict__ idx, const int* __restrict__ part,
+                 int* __restrict__ order, int M, int N) {
+  constexpr int G = CSR_CHUNK / CSR_THREADS;   // groups of 32 per warp
+  extern __shared__ int cur[];   // [N]: this chunk's cursors
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const unsigned lane = t & 31;
+  const int w = t >> 5;
+  const int* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * N;
+  for (int n = t; n < N; n += CSR_THREADS) cur[n] = pb[n];
+  const I* ib = idx + (size_t)b * M;
+  int m[G], dst[G];
+  unsigned peers[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = blockIdx.x * CSR_CHUNK + w * 32 * G + g * 32 + (int)lane;
+    dst[g] = csr_dst(ib, m[g], M, N);
+    peers[g] = __match_any_sync(0xffffffffu, dst[g]);
+  }
   int* rb = order + (size_t)b * M;
-  const unsigned lane = t;
-  for (int m0 = 0; m0 < M; m0 += 32) {
-    const int m = m0 + (int)lane;
-    long long v = m < M ? (long long)ib[m] : -1;
-    const bool valid = v >= 0 && v < N;
-    const int dst = valid ? (int)v : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, dst);
-    if (valid) rb[cur[dst] + __popc(peers & ((1u << lane) - 1u))] = m;
-    __syncwarp();
-    if (valid && (peers >> lane) == 1u) cur[dst] += __popc(peers);
-    __syncwarp();
+  __syncthreads();
+  for (int turn = 0; turn < CSR_THREADS / 32; ++turn) {
+    if (w == turn) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int base = dst[g] >= 0 ? cur[dst[g]] : 0;
+        __syncwarp();   // every peer has read the cursor before it moves
+        if (dst[g] >= 0) {
+          rb[base + __popc(peers[g] & ((1u << lane) - 1u))] = m[g];
+          if ((peers[g] >> lane) == 1u)
+            cur[dst[g]] = base + __popc(peers[g]);
+        }
+        __syncwarp();   // and it has moved before the next group reads it
+      }
+    }
+    __syncthreads();
   }
 }
 
-// Launch csr_build_kernel; returns a cudaError_t as int.
+// Launch the three passes; returns a cudaError_t as int. part is
+// [B, csr_chunks(M), N] int32 scratch.
 template <typename I>
-int csr_build(const I* idx, int* off, int* order, int B, int M, int N,
-              cudaStream_t stream) {
-  const size_t smem = ((size_t)N + 1) * sizeof(int);
+int csr_build(const I* idx, int* off, int* order, int* part, int B, int M,
+              int N, cudaStream_t stream) {
+  const size_t smem = (size_t)N * sizeof(int);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        csr_build_kernel<I>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(
+        csr_count_kernel<I>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(csr_place_kernel<I>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  csr_build_kernel<I><<<B, CSR_THREADS, smem, stream>>>(idx, off, order, M,
-                                                       N);
+  const int chunks = csr_chunks(M);
+  const dim3 grid(chunks, B);
+  csr_count_kernel<I><<<grid, CSR_THREADS, smem, stream>>>(idx, part, M, N);
+  csr_scan_kernel<<<B, CSR_SCAN_THREADS, 0, stream>>>(part, off, chunks, N);
+  csr_place_kernel<I><<<grid, CSR_THREADS, smem, stream>>>(idx, part, order,
+                                                           M, N);
   return static_cast<int>(cudaGetLastError());
 }
 

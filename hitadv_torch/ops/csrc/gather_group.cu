@@ -34,9 +34,9 @@
 // [16, 1024, 64] bf16, idx [16, 512, 32]) the gather reads 1 MB of
 // indices and writes 33.6 MB (plus the rows it reads, 2.1 MB): 11 us at
 // 3.35 TB/s; the scatter reads the 33.6 MB cotangent and 1 MB of indices
-// and writes 2.1 MB, 11 us. The counting sort adds a pass over idx and
-// its CSR scratch (offsets [B, N + 1], sources [B, S * ns]); its stable
-// placement is one warp per batch (common.cuh), the known slow part.
+// and writes 2.1 MB, 11 us. The counting sort (common.cuh) adds two
+// passes over idx and its scratch (offsets [B, N + 1], sources
+// [B, S * ns], per-chunk counts [B, S * ns / 1024, N]).
 
 #include <cstdint>
 
@@ -121,10 +121,10 @@ __global__ void scatter_group_sum_kernel(const T* __restrict__ g,
 
 template <typename T, typename I>
 int scatter_run(const void* idx, const void* g, void* out, int* off,
-                int* order, int B, int S, int ns, int N, int C,
+                int* order, int* part, int B, int S, int ns, int N, int C,
                 cudaStream_t st) {
   int status = hitadv::csr_build<I>(static_cast<const I*>(idx), off, order,
-                                    B, S * ns, N, st);
+                                    part, B, S * ns, N, st);
   if (status != 0) return status;
   const long long total = (long long)B * N * C;
   if (total == 0) return static_cast<int>(cudaGetLastError());
@@ -153,24 +153,25 @@ extern "C" int gather_group(const void* x, const void* idx, void* out, int B,
 }
 
 // idx [B, S, ns] (idx_bytes 4 or 8) in [0, N); g [B, ns, S, C] and out
-// [B, N, C] of one dtype (is_bf16 selects bf16, else f32); off [B, N + 1]
-// and order [B, S * ns] int32 scratch. All contiguous. N <= 49152 (the
-// counting sort keeps N + 1 counters in shared memory).
+// [B, N, C] of one dtype (is_bf16 selects bf16, else f32); off [B, N + 1],
+// order [B, S * ns] and part [B, csr_chunks(S * ns), N] int32 scratch. All
+// contiguous. N <= 49152 (the counting sort keeps N counters in shared
+// memory).
 extern "C" int scatter_add_group(const void* idx, const void* g, void* out,
-                                 int* off, int* order, int B, int S, int ns,
-                                 int N, int C, int idx_bytes, int is_bf16,
-                                 void* stream) {
+                                 int* off, int* order, int* part, int B,
+                                 int S, int ns, int N, int C, int idx_bytes,
+                                 int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 8) {
     if (is_bf16)
       return scatter_run<__nv_bfloat16, long long>(idx, g, out, off, order,
-                                                   B, S, ns, N, C, st);
-    return scatter_run<float, long long>(idx, g, out, off, order, B, S, ns,
-                                         N, C, st);
+                                                   part, B, S, ns, N, C, st);
+    return scatter_run<float, long long>(idx, g, out, off, order, part, B,
+                                         S, ns, N, C, st);
   }
   if (is_bf16)
-    return scatter_run<__nv_bfloat16, int>(idx, g, out, off, order, B, S, ns,
-                                           N, C, st);
-  return scatter_run<float, int>(idx, g, out, off, order, B, S, ns, N, C,
-                                 st);
+    return scatter_run<__nv_bfloat16, int>(idx, g, out, off, order, part, B,
+                                           S, ns, N, C, st);
+  return scatter_run<float, int>(idx, g, out, off, order, part, B, S, ns, N,
+                                 C, st);
 }

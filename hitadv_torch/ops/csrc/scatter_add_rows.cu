@@ -17,8 +17,9 @@
 //
 // What bounds it on an H100: bytes. At the CW-kNN shape (idx [64, 6144],
 // g [64, 6144, 3] f32 -> [64, 1024, 3]) it must read 6.3 MB and write
-// 0.8 MB: 2 us at 3.35 TB/s. The sort adds a pass over idx and writes
-// the CSR (offsets [B, N + 1] and sources [B, M], int32 scratch).
+// 0.8 MB: 2 us at 3.35 TB/s. The sort adds two passes over idx and
+// writes the CSR (offsets [B, N + 1] and sources [B, M]) and its
+// per-chunk counts ([B, M / 1024, N]), int32 scratch.
 
 #include "common.cuh"
 
@@ -52,9 +53,9 @@ __global__ void scatter_sum_kernel(const T* __restrict__ g,
 
 template <typename T, typename I>
 int run(const void* idx, const void* g, void* out, int* off, int* order,
-        int B, int M, int N, int C, cudaStream_t s) {
+        int* part, int B, int M, int N, int C, cudaStream_t s) {
   int status = hitadv::csr_build<I>(static_cast<const I*>(idx), off, order,
-                                    B, M, N, s);
+                                    part, B, M, N, s);
   if (status != 0) return status;
   const long long total = (long long)B * N * C;
   if (total == 0) return static_cast<int>(cudaGetLastError());
@@ -67,21 +68,23 @@ int run(const void* idx, const void* g, void* out, int* off, int* order,
 }  // namespace
 
 // idx [B, M] (idx_bytes 4 or 8) in [0, N); g [B, M, C] and out [B, N, C]
-// of one dtype (is_bf16 selects bf16, else f32); off [B, N + 1] and
-// order [B, M] int32 scratch. All contiguous. N <= 49152 (the counting
-// sort keeps N + 1 counters in shared memory).
+// of one dtype (is_bf16 selects bf16, else f32); off [B, N + 1], order
+// [B, M] and part [B, csr_chunks(M), N] int32 scratch. All contiguous.
+// N <= 49152 (the counting sort keeps N counters in shared memory).
 extern "C" int scatter_add_rows(const void* idx, const void* g, void* out,
-                                int* off, int* order, int B, int M, int N,
-                                int C, int idx_bytes, int is_bf16,
-                                void* stream) {
+                                int* off, int* order, int* part, int B,
+                                int M, int N, int C, int idx_bytes,
+                                int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 8) {
     if (is_bf16)
-      return run<__nv_bfloat16, long long>(idx, g, out, off, order, B, M, N,
-                                           C, s);
-    return run<float, long long>(idx, g, out, off, order, B, M, N, C, s);
+      return run<__nv_bfloat16, long long>(idx, g, out, off, order, part, B,
+                                           M, N, C, s);
+    return run<float, long long>(idx, g, out, off, order, part, B, M, N, C,
+                                 s);
   }
   if (is_bf16)
-    return run<__nv_bfloat16, int>(idx, g, out, off, order, B, M, N, C, s);
-  return run<float, int>(idx, g, out, off, order, B, M, N, C, s);
+    return run<__nv_bfloat16, int>(idx, g, out, off, order, part, B, M, N,
+                                   C, s);
+  return run<float, int>(idx, g, out, off, order, part, B, M, N, C, s);
 }

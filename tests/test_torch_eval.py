@@ -295,13 +295,18 @@ TRAINED_ARGV = ["--dataset", "synthetic", "--batch_size", "16",
     ("HiT-ADV", ["--binary_step", "2", "--num_iter", "8", "--central_num",
                  "16", "--total_central_num", "24", "--curv_loss_knn",
                  "8"]),
-    ("CW-UKNN", [])])
+    ("CW-UKNN", []),
+    ("CW-PerturbT", ["--binary_step", "2", "--num_iter", "8"]),
+    ("CW-UPerturb", ["--binary_step", "2", "--num_iter", "8"]),
+    ("CW-UPerturb", ["--binary_step", "2", "--num_iter", "8",
+                     "--dist_func", "chamfer"])])
 def test_main_asr_matches_jax_main(attack, extra, monkeypatch):
     """`hitadv_torch.eval.main` with ``--device cpu`` on the trained
     victim against the JAX package's `main` on the same arguments: the
     same clean-correct clouds, and ASR within one example (the two draw
     their random starts from different generators). CW-UKNN runs its
-    fixed iteration count, cut here to 40 on both sides."""
+    fixed iteration count, cut here to 40 on both sides; CW-Perturb(T),
+    CW-UPerturb and its Chamfer form run 2 x 8."""
     from hitadv_tpu import attacks as JA
     from hitadv_tpu.eval import main as jax_main
     from hitadv_torch import attacks as A
@@ -327,7 +332,8 @@ def test_main_asr_matches_jax_main(attack, extra, monkeypatch):
     ["--dataset", "synthetic", "--restarts", "4"],
     ["--dataset", "synthetic", "--n_devices", "8"],
     ["--dataset", "synthetic", "--sp_devices", "2", "--dist_func",
-     "chamfer"]])
+     "chamfer"],
+    ["--dataset", "synthetic", "--model", "geoa3_pointnet"]])
 def test_unported_settings_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EV.main(argv + ["--device", "cpu", "--log_dir", ""])

@@ -378,17 +378,20 @@ def test_chip_smoke_counts_launches_by_call_shape():
     assert counts["gather_rows"] == 3
     assert rec.path_shapes["gather_rows"] == {sa: 2, sb: 1}
 
-    def timed(ms):
-        return dict(max_abs_err=0.0, ms=ms, plain_ms=2 * ms, library_ms=None,
+    def timed(ms, graphed=True):
+        return dict(max_abs_err=0.0, ms=ms, eager_ms=3 * ms, graphed=graphed,
+                    plain_ms=2 * ms, library_ms=None, library_graphed=True,
                     bound_ms=ms / 10, bound_by="bytes")
 
     rec.cases["gather_rows"] = {sa: timed(1.0)}
     with pytest.raises(AssertionError, match="unchecked"):
         rec.row("gather_rows")
-    rec.cases["gather_rows"][sb] = timed(4.0)
+    rec.cases["gather_rows"][sb] = timed(4.0, graphed=False)
     row = rec.row("gather_rows")
     assert row["launches"] == 3 and row["library_ms"] is None
     assert row["ms"] == pytest.approx((2 * 1.0 + 4.0) / 3)
+    assert row["eager_ms"] == pytest.approx(3 * (2 * 1.0 + 4.0) / 3)
+    assert not row["graphed"] and row["library_graphed"]
     assert row["bound_ms"] == pytest.approx(0.2) and row["bound_by"] == "bytes"
     with pytest.raises(AssertionError, match="never launched"):
         rec.row("fps")
