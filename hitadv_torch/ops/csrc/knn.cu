@@ -1,8 +1,8 @@
-// Exact k-nearest neighbours (any C up to 256, f32 or bf16 inputs),
-// ascending by squared distance, ties to the lowest point index: the
-// HiT-ADV prep's and the kNN outlier distance's coordinate kNN, and
-// DGCNN's dynamic graph in coordinate and feature space. The k = 1
-// queries of f32 coordinates are nn.cu.
+// Exact k-nearest neighbours (any C up to 256, f32 or bf16 inputs, k up
+// to 64), ascending by squared distance, ties to the lowest point index:
+// the HiT-ADV prep's, CW-UKNN's and the evaluation's coordinate kNN,
+// PCT's and PointConv's grouping, and DGCNN's dynamic graph in coordinate
+// and feature space. The k = 1 queries of f32 coordinates are nn.cu.
 //
 // Replaces: hitadv_tpu/ops/pallas_kernels.py::knn_pallas (:441): the
 // exact bodies _knn_kernel (:129) and _knn_t_kernel (:256), called through
@@ -25,32 +25,63 @@
 //
 // What bounds it on an H100: arithmetic on the CUDA cores. At DGCNN's
 // widest kNN (B=16, Nq=N=1024, C=128) it evaluates 16.8 M distances of
-// 2C + 3 f32 operations: 4.3 GFLOP, 65 us at 67 TFLOP/s; its bytes
-// (8.4 MB of bf16 features, 2.6 MB of outputs) take 3 us.
+// 2C + 3 f32 operations: 4.3 GFLOP, 65 us at 67 TFLOP/s (that peak counts
+// a fused multiply-add as two; without contraction every product and sum
+// issues alone, so the exact order's floor is about twice that); its bytes
+// (8.4 MB of bf16 features, 2.6 MB of outputs) take 3 us. At the
+// coordinate shapes (C = 3) the distances are cheap, and the selection,
+// which moves candidates between lanes, is most of the work.
 //
-// Design: 32 queries per block, one per lane, and four warps that each
-// scan a quarter of every point tile; a lexicographic merge of the four
-// top-k lists ends the block. The top-k list is KMAX registers of
-// distances and indices, KMAX = 32 or 64 by k (two template instances;
-// the k <= 32 instance is the kernel of every k <= 32 query). A query of
-// 128 channels cannot live in registers beside a 32-slot top-k, so the
-// block stages its
-// queries in shared memory (channels padded to a multiple of 4 with
-// zeros, which add exact zeros to every sum; rows padded by one float4 so
-// that a quarter-warp's 16-byte loads fall in distinct banks) and streams
-// the points through shared memory in tiles of G x PT. For each 4
-// channels a thread loads its query's float4 once and then, for each of
-// its warp's PT points, a float4 that the whole warp shares (a broadcast),
-// adding the 4 products to that point's running cross term in channel
-// order. The PT distances go through shared memory to one (not unrolled)
-// copy of the top-k insertion: candidates arrive in ascending index
-// order and replace an entry only when strictly better in (distance,
-// index) order. Each warp's list is thus the k smallest of its points in
-// that order, and merging the four lists in that order gives the k
-// smallest of all, ties to the lowest index.
+// Design: warp-cooperative selection (after WarpSelect, Johnson, Douze
+// and Jegou, "Billion-scale similarity search with GPUs", 2017, kept in
+// (distance, index) order). A warp owns a query (a few where there are
+// many); lane l takes points l, l + 32, ..., so each batch of 32
+// candidates arrives in ascending index order. The k best so far are one
+// sorted list over the warp, slot s in lane s % 32 of register s / 32
+// (k <= 32: one register pair a lane; k <= 64: two). Once the list is
+// full its k-th entry comes from an earlier batch, so "distance strictly
+// below the k-th" is the exact (distance, index) test; one warp OR per
+// step finds the batches with an entrant, one ballot per such batch the
+// entrants. One or two are inserted in turn (each slot compares itself
+// and its predecessor, a shuffle up, with the entrant); more are merged
+// at once, every element going to its rank in the union through a
+// per-warp scratch in shared memory. The result is the k smallest in
+// (distance, index) order, what a stable sort gives; no distance is
+// written to device memory. What costs is the number of entrants: a
+// candidate that enters costs a few shuffles, a scan in index order meets
+// about k (1 + ln(N / k)) of them, and most of those early. So each query
+// first bounds its k-th distance: every lane keeps its 2 (k <= 32) or 4
+// smallest distances in registers, and an exact radix select over the
+// warp (one warp sum a bit) takes the k-th of those 32 x 2 or 32 x 4
+// values. They are distances of real candidates, so at least k candidates
+// lie at or below that bound, and only those are offered: about k + 1
+// enter instead of about 4k. Two distance stages, picked by C and dtype
+// alone:
+//   * f32 and C <= 4 (the coordinates): a block of 4 warps takes 8
+//     queries of one cloud (2 a warp in registers; 1 a warp where the
+//     batch has few queries, so that the card fills) and stages the
+//     cloud's points with their norms in shared memory, 1024 at a time.
+//     The distances are cheap, so it makes two passes over the points:
+//     the first keeps each lane's smallest distances for the bound, the
+//     second offers the candidates within it. Where a lane meets no more
+//     points than it keeps (N <= 64, or 128 for k > 32: the evaluation's
+//     disks) the bound cannot help, and one pass offers them all.
+//   * otherwise (features): a block of 8 warps takes 32 queries, staged
+//     with their norms in shared memory as f32 (channels padded to a
+//     multiple of 4 with zeros, which add exact zeros), and streams the
+//     points through shared memory in tiles of 128. Each lane accumulates
+//     a 4 x 4 register tile (its warp's four queries by its four points
+//     l, l + 32, l + 64, l + 96) from 16-byte operands, each sum in
+//     ascending c: 8 shared loads (4 of them broadcasts) per 128 f32
+//     operations. The point rows are padded to an odd number of float4s
+//     so that a quarter-warp's 16-byte loads fall in distinct banks. A
+//     second pass would double the expensive stage, so the bound is taken
+//     from the first tile only (it holds at least k points), which keeps
+//     its entrants to about k; later tiles meet about k ln(N / 128).
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -58,219 +89,624 @@ namespace {
 
 using hitadv::to_f32;
 
-constexpr int QT = 32;          // queries per block, one per lane
-constexpr int G = 4;            // warps per block, one point sub-tile each
-constexpr int PT = 16;          // points per warp per tile
-constexpr int TILE = G * PT;    // points per shared-memory tile
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool before(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
 }
 
-// Shared memory, in float4 units up to the last two arrays:
-//   qs [QT][C4 + 1] float4    the block's queries
-//   ps [TILE][C4] float4      a tile of points; after the scan the merge
-//                             lists md [G][k][QT] f32 and mi [G][k][QT] i32
-//   pn [TILE] f32             the tile's norms
-//   ds [QT G][PT + 1] f32     each thread's PT distances
-__host__ __device__ inline int region4(int C4, int k) {
-  const int merge4 = (G * k * QT * 2 + 3) / 4;
-  return TILE * C4 > merge4 ? TILE * C4 : merge4;
+// The warp's sorted list of the k best (distance, index) pairs: slot s in
+// lane s % 32 of register s / 32. Empty slots hold (inf, INT_MAX).
+// Candidates are offered in batches of 32 consecutive indices (lane l
+// holds base + l), in ascending order of base: every entry of the list
+// then has a lower index than the batch, so once the list is full a
+// candidate enters exactly when its distance is strictly below the k-th
+// entry's, and while it is short every candidate enters.
+template <int S>
+struct TopK {
+  float d[S];
+  int i[S];
+  float td;     // the k-th entry's distance
+  int filled;   // entries in the list, at most k (the same in every lane)
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      d[r] = INFINITY;
+      i[r] = INT_MAX;
+    }
+    td = INFINITY;
+    filled = 0;
+  }
+
+  __device__ __forceinline__ bool wants(float cd, int k) const {
+    return filled < k || cd < td;
+  }
+
+  __device__ __forceinline__ void read_kth(int k) {
+    const int kr = (k - 1) >> 5;
+    float x = d[0];
+#pragma unroll
+    for (int r = 1; r < S; ++r)
+      if (kr == r) x = d[r];
+    td = __shfl_sync(FULL, x, (k - 1) & 31);
+  }
+
+  // Insert (cd, ci), which enters: each slot compares itself and its
+  // predecessor with it, and the list shifts by one from its place.
+  __device__ __forceinline__ void insert(float cd, int ci, int lane, int k) {
+    float pd[S];
+    int pi[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      pd[r] = __shfl_up_sync(FULL, d[r], 1);
+      pi[r] = __shfl_up_sync(FULL, i[r], 1);
+    }
+#pragma unroll
+    for (int r = 1; r < S; ++r) {
+      const float wd = __shfl_sync(FULL, d[r - 1], 31);
+      const int wi = __shfl_sync(FULL, i[r - 1], 31);
+      if (lane == 0) {
+        pd[r] = wd;
+        pi[r] = wi;
+      }
+    }
+    if (lane == 0) {   // slot 0 has no predecessor: one before everything
+      pd[0] = -INFINITY;
+      pi[0] = INT_MIN;
+    }
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      if (!before(d[r], i[r], cd, ci)) {
+        const bool here = before(pd[r], pi[r], cd, ci);
+        d[r] = here ? cd : pd[r];
+        i[r] = here ? ci : pi[r];
+      }
+    }
+    filled = min(filled + 1, k);
+    read_kth(k);
+  }
+
+  // Merge the candidates of the lanes in m at once: every element's new
+  // slot is its rank in the union of list and batch (all keys differ,
+  // and the empty slots' equal keys keep their order), written through
+  // the warp's scratch sd/si [32 S] in shared memory.
+  __device__ __forceinline__ void merge(float cd, int base, unsigned m,
+                                        int lane, int k, float* sd,
+                                        int* si) {
+    const int ci = base + lane;
+    int rc = 0;      // my candidate: list entries and candidates before it
+    int rl[S];       // my slots: candidates before them
+#pragma unroll
+    for (int r = 0; r < S; ++r) rl[r] = 0;
+    for (unsigned mm = m; mm; mm &= mm - 1) {
+      const int src = __ffs(mm) - 1;
+      const float bd = __shfl_sync(FULL, cd, src);
+      const int bi = base + src;
+      rc += before(bd, bi, cd, ci);
+      int n = 0;
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        const bool lb = before(d[r], i[r], bd, bi);
+        n += __popc(__ballot_sync(FULL, lb));
+        rl[r] += !lb;
+      }
+      if (lane == src) rc += n;
+    }
+    if (((m >> lane) & 1u) && rc < 32 * S) {
+      sd[rc] = cd;
+      si[rc] = ci;
+    }
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const int at = lane + 32 * r + rl[r];
+      if (at < 32 * S) {
+        sd[at] = d[r];
+        si[at] = i[r];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      d[r] = sd[lane + 32 * r];
+      i[r] = si[lane + 32 * r];
+    }
+    __syncwarp();   // read before the next merge writes
+    filled = min(filled + __popc(m), k);
+    read_kth(k);
+  }
+
+  // Offer a batch: lane l's candidate (cd, base + l) if ok. One or two
+  // entrants are inserted in turn (each after the last has moved the
+  // k-th entry); more are merged at once.
+  __device__ __forceinline__ void offer(float cd, int base, bool ok,
+                                        int lane, int k, float* sd,
+                                        int* si) {
+    unsigned m = __ballot_sync(FULL, ok && wants(cd, k));
+    if (__popc(m) > 2) {
+      merge(cd, base, m, lane, k, sd, si);
+      return;
+    }
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float bd = __shfl_sync(FULL, cd, src);
+      if (wants(bd, k)) insert(bd, base + src, lane, k);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* od, int* oi, int lane,
+                                        int k) const {
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const int s = lane + 32 * r;
+      if (s < k) {
+        od[s] = d[r];
+        oi[s] = i[r];
+      }
+    }
+  }
+};
+
+// The T smallest values a lane has seen, ascending (inf when fewer).
+template <int T>
+__device__ __forceinline__ void keep_smallest(float (&t)[T], float v) {
+#pragma unroll
+  for (int s = T - 1; s > 0; --s) t[s] = fmaxf(t[s - 1], fminf(t[s], v));
+  t[0] = fminf(t[0], v);
 }
 
-template <typename T, int KMAX>
-__global__ void __launch_bounds__(QT * G)
-knn_kernel(const T* __restrict__ q, const T* __restrict__ p,
-           float* __restrict__ out_d, int* __restrict__ out_i, int Nq, int N,
-           int C, int C4, int k) {
+// For each of Q queries, the k-th smallest of the warp's 32 T values
+// (k <= 32 T; at least k of them finite or +inf, the rest may be +inf
+// padding): an exact radix select on the order-preserving unsigned image
+// of the floats, one warp sum a bit, the Q selections side by side.
+template <int Q, int T>
+__device__ __forceinline__ void kth_smallest(const float (&t)[Q][T], int k,
+                                             float (&out)[Q]) {
+  unsigned u[Q][T], prefix[Q];
+  int kk[Q];
+#pragma unroll
+  for (int a = 0; a < Q; ++a) {
+#pragma unroll
+    for (int s = 0; s < T; ++s) {
+      const unsigned b = __float_as_uint(t[a][s]);
+      u[a][s] = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+    }
+    prefix[a] = 0;
+    kk[a] = k;
+  }
+  for (int bit = 31; bit >= 0; --bit) {
+    const unsigned hi = bit == 31 ? 0u : ~0u << (bit + 1);
+#pragma unroll
+    for (int a = 0; a < Q; ++a) {
+      int c = 0;
+#pragma unroll
+      for (int s = 0; s < T; ++s)
+        c += (u[a][s] & hi) == prefix[a] && !((u[a][s] >> bit) & 1u);
+      c = __reduce_add_sync(FULL, c);
+      if (kk[a] > c) {
+        kk[a] -= c;
+        prefix[a] |= 1u << bit;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < Q; ++a)
+    out[a] = __uint_as_float((prefix[a] & 0x80000000u)
+                                 ? (prefix[a] & 0x7fffffffu)
+                                 : ~prefix[a]);
+}
+
+// ---------------------------------------------------------------------------
+// f32 coordinates, C <= 4: QW queries a warp in registers, the points and
+// their norms staged in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int XYZ_WARPS = 4;    // warps per block, all of one cloud
+constexpr int XYZ_P = 4;        // points a lane per step: 128 a warp
+constexpr int XYZ_TILE = 1024;  // points per shared-memory tile
+
+template <int C, int S, int QW>
+__global__ void __launch_bounds__(XYZ_WARPS * 32)
+knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
+               float* __restrict__ out_d, int* __restrict__ out_i, int Nq,
+               int N, int k) {
+  constexpr int T = 2 * S;   // values a lane keeps for the threshold
+  __shared__ float ps[C + 1][XYZ_TILE];   // coordinates, then norms
+  __shared__ float sd[XYZ_WARPS][32 * S];
+  __shared__ int si[XYZ_WARPS][32 * S];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int g0 = (blockIdx.x * XYZ_WARPS + w) * QW;   // first query
+  const float* pb = p + (size_t)b * N * C;
+
+  float qv[QW][C];
+  float qn[QW];
+#pragma unroll
+  for (int a = 0; a < QW; ++a) {
+    const bool act = g0 + a < Nq;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      qv[a][c] = act ? q[((size_t)b * Nq + g0 + a) * C + c] : 0.f;
+    qn[a] = qv[a][0] * qv[a][0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) qn[a] = qn[a] + qv[a][c] * qv[a][c];
+  }
+  float keep[QW][T];   // pass 0: this lane's T smallest distances
+  float tau[QW];       // pass 1: only distances <= tau are offered
+  TopK<S> top[QW];
+#pragma unroll
+  for (int a = 0; a < QW; ++a) {
+#pragma unroll
+    for (int s = 0; s < T; ++s) keep[a][s] = INFINITY;
+    top[a].init();
+  }
+
+  // the bound pays where a lane meets more than its T smallest
+  const bool bound = N > 32 * T;
+#pragma unroll
+  for (int a = 0; a < QW; ++a) tau[a] = INFINITY;
+  for (int pass = bound ? 0 : 1; pass < 2; ++pass) {
+    for (int t0 = 0; t0 < N; t0 += XYZ_TILE) {
+      const int cnt = min(XYZ_TILE, N - t0);
+      if (pass == 0 || !bound || N > XYZ_TILE) {   // else still there
+        __syncthreads();   // the previous tile is no longer read
+        for (int e = threadIdx.x; e < cnt; e += XYZ_WARPS * 32) {
+          float pv[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            pv[c] = pb[(size_t)(t0 + e) * C + c];
+            ps[c][e] = pv[c];
+          }
+          float pn = pv[0] * pv[0];
+#pragma unroll
+          for (int c = 1; c < C; ++c) pn = pn + pv[c] * pv[c];
+          ps[C][e] = pn;
+        }
+        __syncthreads();
+      }
+      if (g0 >= Nq) continue;   // the same for the whole warp
+      for (int base = 0; base < cnt; base += 32 * XYZ_P) {
+        float dd[XYZ_P][QW];
+#pragma unroll
+        for (int pp = 0; pp < XYZ_P; ++pp) {
+          const int e = min(base + 32 * pp + lane, cnt - 1);
+          float pv[C];
+#pragma unroll
+          for (int c = 0; c < C; ++c) pv[c] = ps[c][e];
+          const float pn = ps[C][e];
+#pragma unroll
+          for (int a = 0; a < QW; ++a) {
+            float cross = qv[a][0] * pv[0];
+#pragma unroll
+            for (int c = 1; c < C; ++c) cross = cross + qv[a][c] * pv[c];
+            dd[pp][a] = (qn[a] - 2.f * cross) + pn;
+          }
+        }
+        if (pass == 0) {
+#pragma unroll
+          for (int pp = 0; pp < XYZ_P; ++pp)
+            if (base + 32 * pp + lane < cnt)
+#pragma unroll
+              for (int a = 0; a < QW; ++a) keep_smallest(keep[a], dd[pp][a]);
+          continue;
+        }
+        // which (point batch, query) pairs have an entrant: one warp OR
+        unsigned bits = 0;
+#pragma unroll
+        for (int pp = 0; pp < XYZ_P; ++pp)
+#pragma unroll
+          for (int a = 0; a < QW; ++a) {
+            const float d = dd[pp][a];
+            if (g0 + a < Nq && base + 32 * pp + lane < cnt && d <= tau[a] &&
+                top[a].wants(d, k))
+              bits |= 1u << (pp * QW + a);
+          }
+        bits = __reduce_or_sync(FULL, bits);
+#pragma unroll
+        for (int pp = 0; pp < XYZ_P; ++pp) {
+          const int e = base + 32 * pp + lane;
+#pragma unroll
+          for (int a = 0; a < QW; ++a)
+            if ((bits >> (pp * QW + a)) & 1u)
+              top[a].offer(dd[pp][a], t0 + base + 32 * pp,
+                           e < cnt && dd[pp][a] <= tau[a], lane, k, sd[w],
+                           si[w]);
+        }
+      }
+    }
+    if (pass == 0 && g0 < Nq) kth_smallest(keep, k, tau);
+  }
+#pragma unroll
+  for (int a = 0; a < QW; ++a)
+    if (g0 + a < Nq) {
+      const size_t o = ((size_t)b * Nq + g0 + a) * k;
+      top[a].store(out_d + o, out_i + o, lane, k);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Features (any C <= 256, f32 or bf16): register-tiled cross term
+// ---------------------------------------------------------------------------
+
+constexpr int FW = 8;              // warps per block
+constexpr int FQ = 4;              // queries a warp
+constexpr int FP = 4;              // points a lane per tile
+constexpr int FQB = FW * FQ;       // queries per block
+constexpr int FTP = 32 * FP;       // points per tile
+
+// Shared memory: qs [FQB][st] float4, ps [FTP][st] float4, pn [FTP] f32,
+// qn [FQB] f32, with st = C4 rounded up to an odd number; then each warp's
+// merge scratch, sd [FW][64] f32 and si [FW][64] i32.
+__host__ __device__ inline int row_stride4(int C4) { return C4 | 1; }
+
+// Stage rows [r0, r0 + rows) of x [*, C] into dst [rows][st] as f32,
+// zero-padded to 4 st channels and beyond `valid` rows. 16-byte loads
+// where a row is whole 16-byte words and the base is aligned.
+template <typename T>
+__device__ __forceinline__ void stage(float4* dst, const T* __restrict__ x,
+                                      int rows, int valid, int C, int st,
+                                      bool vec) {
+  float* df = reinterpret_cast<float*>(dst);
+  constexpr int V = 16 / sizeof(T);          // elements per 16 bytes
+  const int t = threadIdx.x;
+  if (vec) {
+    const int cv = C / V;                    // 16-byte words per row
+    for (int e = t; e < rows * cv; e += FW * 32) {
+      const int r = e / cv, w = e - r * cv;
+      float v[V];
+      if (r < valid) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+            x + (size_t)r * C) + w);
+        const T* h = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int s = 0; s < V; ++s) v[s] = to_f32(h[s]);
+      } else {
+#pragma unroll
+        for (int s = 0; s < V; ++s) v[s] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < V; s += 4)
+        dst[r * st + (w * V + s) / 4] =
+            make_float4(v[s], v[s + 1], v[s + 2], v[s + 3]);
+    }
+    // channels C .. 4 st (V is a multiple of 4, so these are whole float4s)
+    for (int e = t; e < rows * (st - C / 4); e += FW * 32) {
+      const int r = e / (st - C / 4);
+      dst[r * st + C / 4 + (e - r * (st - C / 4))] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = t; e < rows * 4 * st; e += FW * 32) {
+      const int r = e / (4 * st), c = e - r * 4 * st;
+      df[e] = (c < C && r < valid) ? to_f32(x[(size_t)r * C + c]) : 0.f;
+    }
+  }
+}
+
+// |x|^2 of a staged row, left to right over c (the zero padding adds +0)
+__device__ __forceinline__ float row_norm(const float4* row, int C4) {
+  float4 v = row[0];
+  float s = v.x * v.x;
+  s = s + v.y * v.y;
+  s = s + v.z * v.z;
+  s = s + v.w * v.w;
+  for (int c4 = 1; c4 < C4; ++c4) {
+    v = row[c4];
+    s = s + v.x * v.x;
+    s = s + v.y * v.y;
+    s = s + v.z * v.z;
+    s = s + v.w * v.w;
+  }
+  return s;
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(FW * 32)
+knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
+                float* __restrict__ out_d, int* __restrict__ out_i, int Nq,
+                int N, int C, int k, int vec) {
   extern __shared__ float4 smem[];
-  const int qrow4 = C4 + 1;                  // query row stride in float4
+  const int C4 = (C + 3) / 4;
+  const int st = row_stride4(C4);
   float4* qs = smem;
-  float4* ps = qs + QT * qrow4;
-  float* pn_s = reinterpret_cast<float*>(ps + region4(C4, k));
-  float* ds = pn_s + TILE;
-  float* qsf = reinterpret_cast<float*>(qs);
-  float* psf = reinterpret_cast<float*>(ps);
-  const int Cp = 4 * C4;
+  float4* ps = qs + FQB * st;
+  float* pn_s = reinterpret_cast<float*>(ps + FTP * st);
+  float* qn_s = pn_s + FTP;
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int w = t >> 5;
+  float* sd = qn_s + FQB + w * 32 * S;
+  int* si = reinterpret_cast<int*>(qn_s + FQB + FW * 32 * S) + w * 32 * S;
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * QT;
-  const bool active = q0 + lane < Nq;
-  const T* qb = q + ((size_t)b * Nq + q0) * C;
+  const int q0 = blockIdx.x * FQB;
   const T* pb = p + (size_t)b * N * C;
 
-  for (int r = w; r < QT; r += G)
-    for (int c = lane; c < Cp; c += 32)
-      qsf[r * 4 * qrow4 + c] =
-          (c < C && q0 + r < Nq) ? to_f32(qb[(size_t)r * C + c]) : 0.f;
+  stage(qs, q + ((size_t)b * Nq + q0) * C, FQB, min(FQB, Nq - q0), C, st,
+        vec);
   __syncthreads();
-  const float4* qrow = qs + lane * qrow4;
-  const float* qrowf = qsf + lane * 4 * qrow4;
-  float qn = qrowf[0] * qrowf[0];
-  for (int c = 1; c < C; ++c) qn = qn + qrowf[c] * qrowf[c];
-
-  float dk[KMAX];
-  int ik[KMAX];
+  if (t < FQB) qn_s[t] = row_norm(qs + t * st, C4);
+  __syncthreads();
+  float qn[FQ];
+  bool act[FQ];
 #pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    dk[s] = INFINITY;
-    ik[s] = INT_MAX;
+  for (int a = 0; a < FQ; ++a) {
+    qn[a] = qn_s[w * FQ + a];
+    act[a] = q0 + w * FQ + a < Nq;
   }
-  float worst_d = INFINITY;   // the k-th entry
-  int worst_i = INT_MAX;
-  float* myd = ds + t * (PT + 1);
-  const int j0 = w * PT;      // this warp's points within each tile
+  TopK<S> top[FQ];
+  float tau[FQ];   // from the first tile on: only distances <= tau enter
+#pragma unroll
+  for (int a = 0; a < FQ; ++a) top[a].init();
+  const float4* qrow = qs + w * FQ * st;
+  const float4* prow = ps + lane * st;
 
-  for (int p0 = 0; p0 < N; p0 += TILE) {
-    const int cnt = min(TILE, N - p0);
+  for (int p0 = 0; p0 < N; p0 += FTP) {
     __syncthreads();   // the previous tile is no longer read
-    for (int r = w; r < TILE; r += G)
-      for (int c = lane; c < Cp; c += 32)
-        psf[r * Cp + c] =
-            (c < C && r < cnt) ? to_f32(pb[(size_t)(p0 + r) * C + c]) : 0.f;
+    stage(ps, pb + (size_t)p0 * C, FTP, min(FTP, N - p0), C, st, vec);
     __syncthreads();
-    if (t < TILE) {
-      const float* pr = psf + t * Cp;
-      float pn = pr[0] * pr[0];
-      for (int c = 1; c < C; ++c) pn = pn + pr[c] * pr[c];
-      pn_s[t] = pn;
-    }
-    __syncthreads();
-    const int mine = min(PT, cnt - j0);
-    if (!active || mine <= 0) continue;
+    if (t < FTP) pn_s[t] = row_norm(ps + t * st, C4);
 
-    float cross[PT];
+    float acc[FQ][FP];
 #pragma unroll
-    for (int j = 0; j < PT; ++j) cross[j] = 0.f;
+    for (int a = 0; a < FQ; ++a)
+#pragma unroll
+      for (int pp = 0; pp < FP; ++pp) acc[a][pp] = 0.f;
     for (int c4 = 0; c4 < C4; ++c4) {
-      const float4 a = qrow[c4];
+      float4 qa[FQ], pv[FP];
 #pragma unroll
-      for (int j = 0; j < PT; ++j) {
-        const float4 v = ps[(j0 + j) * C4 + c4];
-        float s = cross[j];
-        s = s + a.x * v.x;
-        s = s + a.y * v.y;
-        s = s + a.z * v.z;
-        s = s + a.w * v.w;
-        cross[j] = s;
-      }
-    }
+      for (int a = 0; a < FQ; ++a) qa[a] = qrow[a * st + c4];
 #pragma unroll
-    for (int j = 0; j < PT; ++j)
-      myd[j] = (qn - 2.f * cross[j]) + pn_s[j0 + j];
-
-    for (int j = 0; j < mine; ++j) {
-      const float d = myd[j];
-      const int id = p0 + j0 + j;
-      if (before(d, id, worst_d, worst_i)) {
-        float cd = d;
-        int ci = id;
+      for (int pp = 0; pp < FP; ++pp) pv[pp] = prow[pp * 32 * st + c4];
 #pragma unroll
-        for (int s = 0; s < KMAX; ++s) {
-          if (s < k && before(cd, ci, dk[s], ik[s])) {
-            const float td = dk[s];
-            const int ti = ik[s];
-            dk[s] = cd;
-            ik[s] = ci;
-            cd = td;
-            ci = ti;
-          }
+      for (int a = 0; a < FQ; ++a)
+#pragma unroll
+        for (int pp = 0; pp < FP; ++pp) {
+          float s = acc[a][pp];
+          s = s + qa[a].x * pv[pp].x;
+          s = s + qa[a].y * pv[pp].y;
+          s = s + qa[a].z * pv[pp].z;
+          s = s + qa[a].w * pv[pp].w;
+          acc[a][pp] = s;
         }
-#pragma unroll
-        for (int s = 0; s < KMAX; ++s) {
-          if (s == k - 1) {
-            worst_d = dk[s];
-            worst_i = ik[s];
-          }
-        }
-      }
     }
+    __syncthreads();   // the tile's norms are written
+    float dd[FP][FQ];
+#pragma unroll
+    for (int pp = 0; pp < FP; ++pp)
+#pragma unroll
+      for (int a = 0; a < FQ; ++a)
+        dd[pp][a] = (qn[a] - 2.f * acc[a][pp]) + pn_s[32 * pp + lane];
+    if (p0 == 0) {
+      // the first tile holds at least k points: the k-th of its lanes'
+      // 2 S smallest distances bounds the k-th distance of the tile, so
+      // only the tile's distances up to it are offered
+      float keep[FQ][2 * S];
+#pragma unroll
+      for (int a = 0; a < FQ; ++a) {
+#pragma unroll
+        for (int s = 0; s < 2 * S; ++s) keep[a][s] = INFINITY;
+#pragma unroll
+        for (int pp = 0; pp < FP; ++pp)
+          if (32 * pp + lane < N) keep_smallest(keep[a], dd[pp][a]);
+      }
+      kth_smallest(keep, k, tau);
+    }
+    unsigned bits = 0;   // which (point batch, query) pairs have an entrant
+#pragma unroll
+    for (int pp = 0; pp < FP; ++pp)
+#pragma unroll
+      for (int a = 0; a < FQ; ++a)
+        if (act[a] && p0 + 32 * pp + lane < N && dd[pp][a] <= tau[a] &&
+            top[a].wants(dd[pp][a], k))
+          bits |= 1u << (pp * FQ + a);
+    bits = __reduce_or_sync(FULL, bits);
+#pragma unroll
+    for (int pp = 0; pp < FP; ++pp)
+#pragma unroll
+      for (int a = 0; a < FQ; ++a)
+        if ((bits >> (pp * FQ + a)) & 1u)
+          top[a].offer(dd[pp][a], p0 + 32 * pp,
+                       p0 + 32 * pp + lane < N && dd[pp][a] <= tau[a], lane,
+                       k, sd, si);
   }
+#pragma unroll
+  for (int a = 0; a < FQ; ++a)
+    if (act[a]) {
+      const size_t o = ((size_t)b * Nq + q0 + w * FQ + a) * k;
+      top[a].store(out_d + o, out_i + o, lane, k);
+    }
+}
 
-  // merge the G lists of each query, smallest (distance, index) first
-  __syncthreads();   // the last tile is no longer read
-  float* md = psf;
-  int* mi = reinterpret_cast<int*>(md + G * k * QT);
-#pragma unroll
-  for (int s = 0; s < KMAX; ++s) {
-    if (s < k) {
-      md[(w * k + s) * QT + lane] = dk[s];
-      mi[(w * k + s) * QT + lane] = ik[s];
-    }
-  }
-  __syncthreads();
-  if (w != 0 || !active) return;
-  int head[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) head[g] = 0;
-  const size_t o = ((size_t)b * Nq + q0 + lane) * k;
-  for (int s = 0; s < k; ++s) {
-    float bd = INFINITY;
-    int bi = INT_MAX;
-    int bg = 0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (head[g] < k) {
-        const int at = (g * k + head[g]) * QT + lane;
-        if (before(md[at], mi[at], bd, bi)) {
-          bd = md[at];
-          bi = mi[at];
-          bg = g;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) head[g] += g == bg;
-    out_d[o + s] = bd;
-    out_i[o + s] = bi;
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+template <int C, int S, int QW>
+int launch_xyz(const float* q, const float* p, float* out_d, int* out_i,
+               int B, int Nq, int N, int k, cudaStream_t stream) {
+  const int per_block = XYZ_WARPS * QW;
+  const dim3 grid((Nq + per_block - 1) / per_block, B);
+  knn_xyz_kernel<C, S, QW><<<grid, XYZ_WARPS * 32, 0, stream>>>(
+      q, p, out_d, out_i, Nq, N, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two queries a warp where that still gives the card 16 warps an SM;
+// else one, so that a small batch of queries spreads over the SMs.
+template <int C, int S>
+int launch_xyz_q(const float* q, const float* p, float* out_d, int* out_i,
+                 int B, int Nq, int N, int k, cudaStream_t stream) {
+  if ((long long)B * ((Nq + 1) / 2) >= 132LL * 16)
+    return launch_xyz<C, S, 2>(q, p, out_d, out_i, B, Nq, N, k, stream);
+  return launch_xyz<C, S, 1>(q, p, out_d, out_i, B, Nq, N, k, stream);
+}
+
+template <int S>
+int launch_xyz_c(const float* q, const float* p, float* out_d, int* out_i,
+                 int B, int Nq, int N, int C, int k, cudaStream_t stream) {
+  switch (C) {
+    case 1: return launch_xyz_q<1, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
+    case 2: return launch_xyz_q<2, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
+    case 3: return launch_xyz_q<3, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
+    default:
+      return launch_xyz_q<4, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
   }
 }
 
-// One instance per list length: KMAX = 32 for k <= 32 (the prep, DGCNN,
-// PCT, CW-UKNN) and KMAX = 64 for 32 < k <= 64 (PointConv's second
-// stage). The dynamic shared-memory limit is an attribute of each
-// instance, so each instance raises its own.
-template <typename T, int KMAX>
-int launch(const void* q, const void* p, float* out_d, int* out_i, int B,
-           int Nq, int N, int C, int k, cudaStream_t stream) {
-  const int C4 = (C + 3) / 4;
-  const size_t smem =
-      ((size_t)QT * (C4 + 1) + region4(C4, k)) * sizeof(float4) +
-      ((size_t)TILE + (size_t)QT * G * (PT + 1)) * sizeof(float);
+template <typename T, int S>
+int launch_feat(const void* q, const void* p, float* out_d, int* out_i,
+                int B, int Nq, int N, int C, int k, cudaStream_t stream) {
+  const int st = row_stride4((C + 3) / 4);
+  const size_t smem = (size_t)(FQB + FTP) * st * sizeof(float4) +
+                      (size_t)(FTP + FQB + 2 * FW * 32 * S) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        knn_kernel<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_feat_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((Nq + QT - 1) / QT, B);
-  knn_kernel<T, KMAX><<<grid, QT * G, smem, stream>>>(
+  constexpr int V = 16 / sizeof(T);
+  const int vec = C % V == 0 &&
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(p)) &
+       15) == 0;
+  const dim3 grid((Nq + FQB - 1) / FQB, B);
+  knn_feat_kernel<T, S><<<grid, FW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(p), out_d, out_i, Nq,
-      N, C, C4, k);
+      N, C, k, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_k(const void* q, const void* p, float* out_d, int* out_i, int B,
-             int Nq, int N, int C, int k, cudaStream_t stream) {
+int launch_feat_k(const void* q, const void* p, float* out_d, int* out_i,
+                  int B, int Nq, int N, int C, int k, cudaStream_t stream) {
   if (k <= 32)
-    return launch<T, 32>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
-  return launch<T, 64>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
+    return launch_feat<T, 1>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
+  return launch_feat<T, 2>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
 }
 
 }  // namespace
 
 // q [B, Nq, C], p [B, N, C] of one dtype (is_bf16 selects bf16, else f32)
 // with 1 <= C <= 256 and 1 <= k <= min(N, 64); out_d [B, Nq, k] f32,
-// out_i [B, Nq, k] i32. All contiguous.
+// out_i [B, Nq, k] i32. All contiguous. f32 with C <= 4 takes
+// knn_xyz_kernel, everything else knn_feat_kernel; each has one instance
+// for k <= 32 and one for k <= 64.
 extern "C" int knn(const void* q, const void* p, float* out_d, int* out_i,
                    int B, int Nq, int N, int C, int k, int is_bf16,
                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Nq == 0) return 0;
+  if (!is_bf16 && C <= 4) {
+    const float* qf = static_cast<const float*>(q);
+    const float* pf = static_cast<const float*>(p);
+    if (k <= 32)
+      return launch_xyz_c<1>(qf, pf, out_d, out_i, B, Nq, N, C, k, s);
+    return launch_xyz_c<2>(qf, pf, out_d, out_i, B, Nq, N, C, k, s);
+  }
   if (is_bf16)
-    return launch_k<__nv_bfloat16>(q, p, out_d, out_i, B, Nq, N, C, k, s);
-  return launch_k<float>(q, p, out_d, out_i, B, Nq, N, C, k, s);
+    return launch_feat_k<__nv_bfloat16>(q, p, out_d, out_i, B, Nq, N, C, k, s);
+  return launch_feat_k<float>(q, p, out_d, out_i, B, Nq, N, C, k, s);
 }

@@ -4,113 +4,246 @@
 // Replaces: hitadv_tpu/ops/pallas_kernels.py::max_linear_dh_pallas
 // (:2144), kernel body _maxlin_dh_kernel (:2126).
 //
-// Computes, for row [B, C] i32, g [B, C] f32 and W^T [C, K] (f32 or
-// bf16):
+// Computes, for row [B, C] i32, g [B, C] f32 and W [K, C] (f32 or bf16):
 //     dh[b, n, :] = sum_{c : row[b, c] == n} g~[b, c] * W[:, c]
 // with g~ = g cast to W's dtype first (as the reference does), products
-// and sums in f32, stored once in W's dtype. Rows that win no column
-// come out as exact zeros.
+// and sums in f32 (one fused multiply-add a term, into an accumulator
+// that starts at +0), each (n, k) summing its columns in ascending c,
+// stored once in W's dtype. Rows that win no column come out as exact
+// zeros.
 //
 // What bounds it on an H100: the output. At the PointNet shape (B=64,
 // N=1024, K=128, C=1024) it writes 16.8 MB of bf16 (5 us at 3.35 TB/s)
-// and does only B*C*K = 8.4 M multiply-adds.
+// and does only B*C*K = 8.4 M multiply-adds; at PCT's (B=16, N=256,
+// K=1280) 10.5 MB (3.9 us).
 //
-// Design: one block per (batch, 32-row tile, tile of at most 256
-// channels k), one thread per output channel k. The block stages row[b, :]
-// and g[b, :] in shared memory, then walks the columns c in ascending
-// order; a column whose argmax falls in the row tile adds g~[b, c] *
-// W^T[c, k-tile] into a shared f32 accumulator [32, K-tile] (each thread
-// touches only its own k, so no atomics). The sum order is fixed
-// (ascending c), so the output is deterministic, bit for bit, from run to
-// run, and the same for any tiling of k. The tile is then stored once,
-// coalesced along k. Tiling k keeps the accumulator within the static
-// 48 KB of shared memory for PCT's conv_fuse (K = 1280, C = 1024: 40 KB
-// per block); an untiled [32, 1280] accumulator would need 172 KB.
+// Design: one block per (batch, 64-row tile, tile of at most 256 channels
+// k). The block first finds the columns whose argmax falls in its row
+// tile, in parallel: each warp reads its share of row[b, :] coalesced and
+// ranks its hits among equal rows with __match_any_sync; per-warp counts
+// by row and a scan over (row, warp) give every hit its place in a
+// per-row list, in ascending c (a stable counting sort of the tile's
+// hits), with g~ staged for the hits only. Then each thread takes 16
+// bytes of one output row (8 bf16 or 4 f32 channels), walks that row's
+// hits in ascending c, reading one 16-byte slice of W^T's row c per hit
+// and folding it into registers, and stores its slice once: a row with no
+// hit stores zeros, so every output byte is written exactly once and
+// nothing is read back. A row that wins every column (a cloud of
+// identical points) is one list of C hits, in ascending c like any other.
+// The sum order per (n, k) is fixed, so the output is the same bits on
+// every run and for any tiling of k. W^T comes from a first launch, a
+// transpose through shared-memory tiles into the wrapper's scratch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int TN = 32;   // output rows per block
-constexpr int TK = 256;  // output channels per block, at most
+using hitadv::from_f32;
+using hitadv::to_f32;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TN = 64;    // output rows per block
+constexpr int TK = 256;   // output channels per block, at most
+
+// Shared memory (ints, then the staged g~):
+//   cnt  [WARPS][TN]  per-warp hits by row, then each warp's cursors
+//   off  [TN + 1]     each row's first hit
+//   hc   [C]          the hits' columns, grouped by row, ascending c
+//   hg   [C] f32      their g~
+__host__ __device__ inline size_t smem_bytes(int C) {
+  return ((size_t)WARPS * TN + TN + 1 + 2 * (size_t)C) * 4;
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+
+// The channels a thread owns: 16 bytes of them
+template <typename T>
+__host__ __device__ constexpr int slice_of() { return 16 / sizeof(T); }
 
 template <typename T>
-__global__ void maxlin_dh_kernel(const int* __restrict__ row,
-                                 const float* __restrict__ g,
-                                 const T* __restrict__ wt, T* __restrict__ out,
-                                 int N, int K, int C, int kt) {
-  extern __shared__ float smem[];
-  int* row_s = reinterpret_cast<int*>(smem);   // [C]
-  float* g_s = smem + C;                       // [C]
-  float* acc = smem + 2 * C;                   // [TN, kt]
+__global__ void __launch_bounds__(THREADS)
+maxlin_dh_kernel(const int* __restrict__ row, const float* __restrict__ g,
+                 const T* __restrict__ wt, T* __restrict__ out, int N, int K,
+                 int C, int vec) {
+  constexpr int V = slice_of<T>();
+  extern __shared__ int smem[];
+  int* cnt = smem;
+  int* off = cnt + WARPS * TN;
+  int* hc = off + TN + 1;
+  float* hg = reinterpret_cast<float*>(hc + C);
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * TN;
-  const int k0 = blockIdx.z * kt;
-  const int kn = min(kt, K - k0);              // channels of this tile
-  const int tid = threadIdx.x;
+  const int k0 = blockIdx.z * TK;
+  const int kn = min(TK, K - k0);          // channels of this tile
+  const int t = threadIdx.x;
+  const unsigned lane = t & 31;
+  const int w = t >> 5;
+  const int* rb = row + (size_t)b * C;
+  // warp w takes columns [c_lo, c_hi), whole groups of 32
+  const int per = (C + 32 * WARPS - 1) / (32 * WARPS) * 32;
+  const int c_lo = w * per;
+  const int c_hi = min(C, c_lo + per);
 
-  for (int c = tid; c < C; c += blockDim.x) {
-    row_s[c] = row[(size_t)b * C + c];
-    g_s[c] = to_f32(from_f32<T>(g[(size_t)b * C + c]));
-  }
-  for (int e = tid; e < TN * kt; e += blockDim.x) acc[e] = 0.f;
+  for (int e = t; e < WARPS * TN; e += THREADS) cnt[e] = 0;
   __syncthreads();
-
-  for (int c = 0; c < C; ++c) {
-    const int r = row_s[c] - n0;
-    if (r >= 0 && r < TN) {   // the same branch for the whole block
-      const float gv = g_s[c];
-      const T* wc = wt + (size_t)c * K + k0;
-      for (int k = tid; k < kn; k += blockDim.x)
-        acc[r * kt + k] += gv * to_f32(wc[k]);
+  // 1. count each warp's hits by row
+  for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
+    const int c = c0 + (int)lane;
+    const int r = c < c_hi ? rb[c] - n0 : -1;
+    const int dst = r >= 0 && r < TN ? r : -1;
+    const unsigned peers = __match_any_sync(FULL_MASK, dst);
+    if (dst >= 0 && (peers & ((1u << lane) - 1u)) == 0)
+      cnt[w * TN + dst] += __popc(peers);
+    __syncwarp();   // the next group's leader reads what this one wrote
+  }
+  __syncthreads();
+  // 2. scan: each row's total (warp 0, two rows a lane), exclusive over
+  // rows; then each warp's first slot per row
+  if (w == 0) {
+    int tot[TN / 32];
+    int run = 0;
+#pragma unroll
+    for (int h = 0; h < TN / 32; ++h) {
+      const int r = (int)lane * (TN / 32) + h;
+      tot[h] = 0;
+      for (int v = 0; v < WARPS; ++v) tot[h] += cnt[v * TN + r];
+      run += tot[h];
+    }
+    int x = run;   // inclusive scan of the lanes' sums
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL_MASK, x, d);
+      if ((int)lane >= d) x += y;
+    }
+    int base = x - run;
+#pragma unroll
+    for (int h = 0; h < TN / 32; ++h) {
+      const int r = (int)lane * (TN / 32) + h;
+      off[r] = base;
+      for (int v = 0; v < WARPS; ++v) {
+        const int n = cnt[v * TN + r];
+        cnt[v * TN + r] = base;
+        base += n;
+      }
+    }
+    if (lane == 31) off[TN] = base;
+  }
+  __syncthreads();
+  // 3. place each warp's hits in ascending c, and stage their g~
+  for (int c0 = c_lo; c0 < c_hi; c0 += 32) {
+    const int c = c0 + (int)lane;
+    const int r = c < c_hi ? rb[c] - n0 : -1;
+    const int dst = r >= 0 && r < TN ? r : -1;
+    const unsigned peers = __match_any_sync(FULL_MASK, dst);
+    if (dst >= 0) {
+      const int at = cnt[w * TN + dst] +
+                     __popc(peers & ((1u << lane) - 1u));
+      hc[at] = c;
+      hg[at] = to_f32(from_f32<T>(g[(size_t)b * C + c]));
+    }
+    __syncwarp();   // every peer has read the cursor before it moves
+    if (dst >= 0 && (peers >> lane) == 1u)
+      cnt[w * TN + dst] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  // 4. each (row, 16-byte slice of k): its hits in order, stored once
+  const int slices = (kn + V - 1) / V;
+  for (int e = t; e < TN * slices; e += THREADS) {
+    const int r = e / slices;
+    if (n0 + r >= N) break;                // rows ascend with e
+    const int k = k0 + (e - r * slices) * V;
+    float acc[V];
+#pragma unroll
+    for (int s = 0; s < V; ++s) acc[s] = 0.f;
+    for (int h = off[r]; h < off[r + 1]; ++h) {
+      const float gv = hg[h];
+      const T* wc = wt + (size_t)hc[h] * K + k;
+      alignas(16) T wv[V];
+      if (vec) {
+        *reinterpret_cast<uint4*>(wv) =
+            __ldg(reinterpret_cast<const uint4*>(wc));
+      } else {
+#pragma unroll
+        for (int s = 0; s < V; ++s)
+          wv[s] = k + s < k0 + kn ? wc[s] : from_f32<T>(0.f);
+      }
+#pragma unroll
+      for (int s = 0; s < V; ++s)
+        acc[s] = __fmaf_rn(gv, to_f32(wv[s]), acc[s]);
+    }
+    T* o = out + ((size_t)b * N + n0 + r) * K + k;
+    if (vec) {
+      alignas(16) T ov[V];
+#pragma unroll
+      for (int s = 0; s < V; ++s) ov[s] = from_f32<T>(acc[s]);
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(ov);
+    } else {
+#pragma unroll
+      for (int s = 0; s < V; ++s)
+        if (k + s < k0 + kn) o[s] = from_f32<T>(acc[s]);
     }
   }
+}
 
-  // each thread reads back only the channels it accumulated: no barrier
-  T* ob = out + ((size_t)b * N + n0) * K + k0;
-  for (int r = 0; r < TN && n0 + r < N; ++r)
-    for (int k = tid; k < kn; k += blockDim.x)
-      ob[(size_t)r * K + k] = from_f32<T>(acc[r * kt + k]);
+// W [K, C] -> W^T [C, K] through 32 x 32 tiles in shared memory, so that
+// each hit reads one contiguous row of W^T. 32 x 8 threads a tile.
+template <typename T>
+__global__ void __launch_bounds__(256)
+transpose_kernel(const T* __restrict__ w, T* __restrict__ wt, int K,
+                 int C) {
+  __shared__ float tile[32][33];   // bf16 -> f32 -> bf16 is exact
+  const int c0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int k = k0 + r, c = c0 + threadIdx.x;
+    if (k < K && c < C)
+      tile[r][threadIdx.x] = to_f32(w[(size_t)k * C + c]);
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int c = c0 + r, k = k0 + threadIdx.x;
+    if (c < C && k < K)
+      wt[(size_t)c * K + k] = from_f32<T>(tile[threadIdx.x][r]);
+  }
 }
 
 template <typename T>
-int launch(const int* row, const float* g, const void* wt, void* out, int B,
-           int N, int K, int C, cudaStream_t stream) {
-  const int kt = K < TK ? K : TK;
-  const int threads = ((kt + 31) / 32) * 32;
-  const size_t smem = (2 * (size_t)C + (size_t)TN * kt) * sizeof(float);
-  const dim3 grid((N + TN - 1) / TN, B, (K + kt - 1) / kt);
-  maxlin_dh_kernel<T><<<grid, threads, smem, stream>>>(
-      row, g, static_cast<const T*>(wt), static_cast<T*>(out), N, K, C, kt);
+int launch(const int* row, const float* g, const void* w, void* wt,
+           void* out, int B, int N, int K, int C, cudaStream_t stream) {
+  transpose_kernel<T><<<dim3((C + 31) / 32, (K + 31) / 32), dim3(32, 8), 0,
+                        stream>>>(static_cast<const T*>(w),
+                                  static_cast<T*>(wt), K, C);
+  const size_t smem = smem_bytes(C);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        maxlin_dh_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // 16-byte slices need rows of whole 16-byte words and aligned bases
+  const int vec = K % slice_of<T>() == 0 &&
+      ((reinterpret_cast<uintptr_t>(wt) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  const dim3 grid((N + TN - 1) / TN, B, (K + TK - 1) / TK);
+  maxlin_dh_kernel<T><<<grid, THREADS, smem, stream>>>(
+      row, g, static_cast<const T*>(wt), static_cast<T*>(out), N, K, C, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// row [B, C] i32, g [B, C] f32, wt [C, K] and out [B, N, K] of one dtype
-// (is_bf16 selects bf16, else f32). All contiguous. Needs (2 C + 32
-// min(K, 256)) * 4 bytes of shared memory; the wrapper refuses shapes
-// above 48 KB (C > 2048 once K >= 256).
-extern "C" int max_linear_dh(const int* row, const float* g, const void* wt,
-                             void* out, int B, int N, int K, int C,
+// row [B, C] i32, g [B, C] f32, w [K, C], the scratch wt [C, K] and out
+// [B, N, K] of one dtype (is_bf16 selects bf16, else f32). All
+// contiguous. Two launches: the transpose of w into wt, then the
+// gradient. Needs (8 * 64 + 65 + 2 C) * 4 bytes of shared memory; the
+// wrapper refuses shapes above the 227 KB a block can have (C > 28767).
+extern "C" int max_linear_dh(const int* row, const float* g, const void* w,
+                             void* wt, void* out, int B, int N, int K, int C,
                              int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(row, g, wt, out, B, N, K, C, s);
-  return launch<float>(row, g, wt, out, B, N, K, C, s);
+    return launch<__nv_bfloat16>(row, g, w, wt, out, B, N, K, C, s);
+  return launch<float>(row, g, w, wt, out, B, N, K, C, s);
 }

@@ -213,6 +213,68 @@ def test_knn_bf16_features_widen_exactly():
     assert torch.equal(i16, i32) and torch.equal(d16, d32)
 
 
+@pytest.mark.parametrize("N,C,k", [(64, 3, 20), (100, 3, 64),
+                                   (40, 128, 20)])
+def test_knn_all_equal_points_take_the_first_k(N, C, k):
+    """Every distance ties: the plain kNN and the JAX package's (Pallas
+    in interpret mode, and its XLA `knn_idx`) return indices 0..k-1 and
+    equal distances. The card's warp selection is held to this."""
+    from hitadv_tpu.ops import geometry as JG
+
+    rng = np.random.RandomState(21)
+    x = np.repeat(rng.randn(2, 1, C).astype(np.float32), N, axis=1)
+    got_d, got_i = K.knn(_torch(x), _torch(x), k)
+    np.testing.assert_array_equal(
+        got_i.numpy(), np.broadcast_to(np.arange(k, dtype=np.int32),
+                                       (2, N, k)))
+    assert (got_d == got_d[..., :1]).all()
+    want_d, want_i = PK.knn_pallas(jnp.asarray(x), jnp.asarray(x), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(
+        got_i.numpy(), np.asarray(JG.knn_idx(jnp.asarray(x), jnp.asarray(x),
+                                             k)))
+
+
+@pytest.mark.parametrize("N", [16, 24, 33, 49])
+def test_knn_in_eval_disks_matches_pallas(N):
+    """The evaluation's uniformity disks: the 6 nearest among 16-49
+    points of a disk, each disk its own batch."""
+    rng = np.random.RandomState(22)
+    x = (0.2 * rng.randn(12, N, 3)).astype(np.float32)
+    x[:, N - 1] = x[:, 2]                  # a duplicate: an exact tie
+    got_d, got_i = K.knn(_torch(x), _torch(x), 6)
+    want_d, want_i = PK.knn_pallas(jnp.asarray(x), jnp.asarray(x), 6)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_max_linear_dh_one_row_wins_every_column(bf16):
+    """A row that wins every column (a cloud of identical points): on
+    integer-valued g and W every sum is exact in any order, so the plain
+    version and the Pallas kernel (interpret mode) agree exactly, and
+    every other row is zero."""
+    rng = np.random.RandomState(23)
+    B, N, Kc, C = 2, 100, 16, 256
+    row = np.repeat(rng.randint(0, N, (B, 1)), C, axis=1).astype(np.int32)
+    g = rng.randint(-8, 9, (B, C)).astype(np.float32)
+    w = rng.randint(-4, 5, (Kc, C)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                           torch.float32)
+    want = PK.max_linear_dh_pallas(jnp.asarray(row), jnp.asarray(g),
+                                   jnp.asarray(w, jdt), N)
+    got = K.max_linear_dh(_torch(row), _torch(g), _torch(w, tdt), N)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    for bb in range(B):
+        rest = np.delete(got[bb].float().numpy(), row[bb, 0], axis=0)
+        assert (rest == 0).all()
+        exact = _torch(g[bb] @ w.T).to(tdt).float().numpy()
+        assert (got[bb, row[bb, 0]].float().numpy() == exact).all()
+
+
 @pytest.mark.parametrize("N,M,C", [(100, 300, 3), (130, 64, 8)])
 def test_scatter_add_rows_matches_index_points_vjp(N, M, C):
     from hitadv_tpu.ops import geometry as JG
