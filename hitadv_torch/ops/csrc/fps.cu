@@ -12,129 +12,155 @@
 // order. Built with -fmad=false, so the distances are the bits of the
 // plain PyTorch version and the selected indices are equal.
 //
-// What bounds it on an H100: latency. The npoint steps depend on each
-// other and each ends in a block-wide argmax; the arithmetic (B*npoint*N
-// distance updates of ~10 operations: 0.17 GFLOP at the HiT-ADV shape,
-// 3 us at 67 TFLOP/s) and the bytes (0.8 MB) are far below the chain of
-// 256 reductions.
+// What bounds it on an H100: the chain of steps. Each step needs the
+// previous step's winner, and each ends in a block-wide argmax; the
+// arithmetic (about 12 instructions per point and step, 0.17 GFLOP at
+// the HiT-ADV prep's shape) and the bytes (0.8 MB) are far below the
+// latency of npoint dependent reductions. Only a shorter step helps: a
+// cloud is one block, and B = 16 clouds leave most SMs idle whatever the
+// kernel does.
 //
-// Design: one block of 512 threads per cloud. Each thread keeps its
-// points' coordinates and running min-distances in registers (points
-// tid, tid+512, ..., PT of them), so a step reads nothing from memory but
-// the chosen point. The argmax is a warp-shuffle reduction of
-// (value, index) pairs, then one over the warps' results in shared
-// memory; a larger value wins, an equal value goes to the lower index.
+// Design, for the length of one step:
+//   * the cloud is staged once into shared memory as float4 records, so
+//     the chosen point's coordinates are one shared load per step;
+//   * blocked layout: thread t owns points t*PT .. t*PT+PT-1 (their
+//     coordinates and running min-distances in registers), so a lower
+//     lane holds lower indices;
+//   * the distances are finite and >= +0 (slots past N hold 0, and never
+//     win: a lower valid index holds every value they could tie), so
+//     their f32 bits order as uint32. A thread takes its maximum by an
+//     fmaxf tree (depth log2 PT); the warp's maximum is one
+//     __reduce_max_sync of the bits, and its first index one
+//     __reduce_min_sync over the lanes that hold it, each offering its
+//     first point at that value (found beside the first reduction, off
+//     the chain): two dependent warp operations, no shuffles;
+//   * one barrier per step: lane 0 writes the warp's (bits, index) to a
+//     slot double-buffered by step parity, and after the barrier every
+//     thread reads the W slots and takes their first maximum by a tree,
+//     so there is no second barrier and no serial reduction by warp 0;
+//   * the chosen indices go to shared memory (warp 0 stores each one,
+//     all lanes to one address) and to `out` after the loop: a global
+//     store in the loop lengthened each step.
+// The number of warps is chosen by N alone (`fps`): 4 up to N = 4096,
+// else 8 (32 points a thread). Four beat one warp a cloud (no barrier,
+// 32 points a lane) and eight at N <= 1024 on the H100 (PERF.md, PR 8).
 
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
-
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int PT_MAX = 16;   // N <= 8192
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    better(v, i, ov, oi);
-  }
-}
-
-template <int PT>
-__global__ void __launch_bounds__(THREADS)
+template <int W, int PT>
+__global__ void __launch_bounds__(W * 32)
 fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
            int* __restrict__ out, int N, int npoint) {
-  __shared__ float wv[WARPS];
-  __shared__ int wi[WARPS];
-  __shared__ int far_s;
+  extern __shared__ float4 cloud[];   // [N]: x, y, z, unused; then the
+                                      // chosen indices
+  __shared__ __align__(16) uint2 slot[2][W];   // per warp: (bits, index)
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const float* xb = xyz + (size_t)b * N * 3;
+  int* ob = out + (size_t)b * npoint;
 
+  for (int e = tid; e < N; e += W * 32)
+    cloud[e] = make_float4(xb[(size_t)e * 3 + 0], xb[(size_t)e * 3 + 1],
+                           xb[(size_t)e * 3 + 2], 0.f);
+  __syncthreads();
+
+  const int n0 = tid * PT;
   float px[PT], py[PT], pz[PT], dist[PT];
 #pragma unroll
   for (int j = 0; j < PT; ++j) {
-    const int n = j * THREADS + tid;
-    const bool ok = n < N;
-    px[j] = ok ? xb[(size_t)n * 3 + 0] : 0.f;
-    py[j] = ok ? xb[(size_t)n * 3 + 1] : 0.f;
-    pz[j] = ok ? xb[(size_t)n * 3 + 2] : 0.f;
-    dist[j] = 1e10f;
+    const int n = n0 + j;
+    const float4 c = cloud[n < N ? n : N - 1];
+    px[j] = c.x;
+    py[j] = c.y;
+    pz[j] = c.z;
+    dist[j] = n < N ? 1e10f : 0.f;
   }
 
+  int* chosen = reinterpret_cast<int*>(cloud + N);   // [npoint]
   int far = start[b];
-  for (int i = 0; i < npoint; ++i) {
-    if (tid == 0) out[(size_t)b * npoint + i] = far;
-    const float cx = xb[(size_t)far * 3 + 0];
-    const float cy = xb[(size_t)far * 3 + 1];
-    const float cz = xb[(size_t)far * 3 + 2];
-
-    float bv = -INFINITY;
-    int bi = INT_MAX;
+  for (int i = 0;;) {
+    if (warp == 0) chosen[i] = far;   // one address: a single store
+    if (++i == npoint) break;
+    const float4 c = cloud[far];
+    float v[PT];
 #pragma unroll
     for (int j = 0; j < PT; ++j) {
-      const int n = j * THREADS + tid;   // ascending in j: first wins
-      if (n < N) {
-        const float dx = px[j] - cx, dy = py[j] - cy, dz = pz[j] - cz;
-        const float d = (dx * dx + dy * dy) + dz * dz;
-        const float m = fminf(dist[j], d);
-        dist[j] = m;
-        if (m > bv) {
-          bv = m;
-          bi = n;
-        }
-      }
+      const float dx = px[j] - c.x, dy = py[j] - c.y, dz = pz[j] - c.z;
+      dist[j] = fminf(dist[j], (dx * dx + dy * dy) + dz * dz);
+      v[j] = dist[j];
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      wv[warp] = bv;
-      wi[warp] = bi;
-    }
+    // the thread's maximum by a tree, then its first point at that value
+    // (a chain of selects from the last point down, beside the warp's
+    // reduction of the maximum)
+#pragma unroll
+    for (int h = 1; h < PT; h *= 2)
+#pragma unroll
+      for (int j = 0; j + h < PT; j += 2 * h) v[j] = fmaxf(v[j], v[j + h]);
+    int first = PT;
+#pragma unroll
+    for (int j = PT - 1; j >= 0; --j) first = dist[j] == v[0] ? j : first;
+    const unsigned key = __float_as_uint(v[0]);
+    const unsigned wmax = __reduce_max_sync(FULL, key);
+    const unsigned widx = __reduce_min_sync(
+        FULL, key == wmax ? (unsigned)(n0 + first) : 0xffffffffu);
+    // lane 0 files the warp's (bits, index); after the barrier every
+    // thread takes the first maximum over the slots by a tree
+    uint2* sl = slot[i & 1];
+    if (lane == 0) sl[warp] = make_uint2(wmax, widx);
     __syncthreads();
-    if (warp == 0) {
-      bv = lane < WARPS ? wv[lane] : -INFINITY;
-      bi = lane < WARPS ? wi[lane] : INT_MAX;
-      warp_argmax(bv, bi);
-      if (lane == 0) far_s = bi;
-    }
-    __syncthreads();
-    far = far_s;
+    uint2 s[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) s[w] = sl[w];
+#pragma unroll
+    for (int h = 1; h < W; h *= 2)
+#pragma unroll
+      for (int w = 0; w + h < W; w += 2 * h)
+        if (s[w + h].x > s[w].x) s[w] = s[w + h];
+    far = (int)s[0].y;
   }
+  __syncthreads();
+  for (int e = tid; e < npoint; e += W * 32) ob[e] = chosen[e];
 }
 
-template <int PT>
+template <int W, int PT>
 int launch(const float* xyz, const int* start, int* out, int B, int N,
            int npoint, cudaStream_t stream) {
-  fps_kernel<PT><<<B, THREADS, 0, stream>>>(xyz, start, out, N, npoint);
+  const size_t smem = (size_t)N * sizeof(float4) + (size_t)npoint * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fps_kernel<W, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  fps_kernel<W, PT><<<B, W * 32, smem, stream>>>(xyz, start, out, N,
+                                                  npoint);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // xyz [B, N, 3] f32, start [B] i32 in [0, N), out [B, npoint] i32; all
-// contiguous; 1 <= N <= THREADS * PT_MAX.
+// contiguous; 1 <= N <= 8192 and 1 <= npoint <= 8192 (the cloud's 16-byte
+// records and the indices in shared memory: at most 160 KB). Four warps a
+// cloud up to N = 4096 (PT: the least power of two with 128 * PT >= N),
+// else eight with 32 points a thread.
 extern "C" int fps(const float* xyz, const int* start, int* out, int B, int N,
                    int npoint, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pt = (N + THREADS - 1) / THREADS;
-  if (pt <= 1) return launch<1>(xyz, start, out, B, N, npoint, s);
-  if (pt <= 2) return launch<2>(xyz, start, out, B, N, npoint, s);
-  if (pt <= 4) return launch<4>(xyz, start, out, B, N, npoint, s);
-  if (pt <= 8) return launch<8>(xyz, start, out, B, N, npoint, s);
-  if (pt <= PT_MAX) return launch<PT_MAX>(xyz, start, out, B, N, npoint, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || N > 8192 || npoint < 1 || npoint > 8192)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 4096) return launch<8, 32>(xyz, start, out, B, N, npoint, s);
+  const int pt = (N + 127) / 128;
+  if (pt <= 1) return launch<4, 1>(xyz, start, out, B, N, npoint, s);
+  if (pt <= 2) return launch<4, 2>(xyz, start, out, B, N, npoint, s);
+  if (pt <= 4) return launch<4, 4>(xyz, start, out, B, N, npoint, s);
+  if (pt <= 8) return launch<4, 8>(xyz, start, out, B, N, npoint, s);
+  if (pt <= 16) return launch<4, 16>(xyz, start, out, B, N, npoint, s);
+  return launch<4, 32>(xyz, start, out, B, N, npoint, s);
 }

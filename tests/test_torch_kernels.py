@@ -362,16 +362,78 @@ def test_graph_max_pool_vjp_matches_jax_custom_vjp():
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("N,npoint", [(130, 32), (100, 40)])
-def test_fps_matches_pallas_from_start(N, npoint):
+@pytest.mark.parametrize("N,npoint,same", [
+    (130, 32, False), (100, 40, False), (33, 33, False), (1000, 40, False),
+    (64, 20, True)], ids=["130-32", "100-40", "33-33", "1000-40",
+                          "64-20-all-equal"])
+def test_fps_matches_pallas_from_start(N, npoint, same):
+    """The contract the card's FPS keeps (`csrc/fps.cu`), on the plain
+    version against the JAX package: duplicated points, a start at N - 1,
+    N no multiple of 32, npoint = N, and a cloud whose points are all
+    equal (every step ties, so every step after the first takes index
+    0, the lowest)."""
     rng = np.random.RandomState(7)
-    xyz = rng.randn(2, N, 3).astype(np.float32)
+    if same:
+        xyz = np.repeat(rng.randn(2, 1, 3).astype(np.float32), N, axis=1)
+    else:
+        xyz = rng.randn(2, N, 3).astype(np.float32)
     xyz[:, -5:] = xyz[:, :5]               # duplicates: equal distances
     start = np.array([5, N - 1], np.int32)
     want = PK.fps_pallas_from_start(jnp.asarray(xyz), npoint,
                                     jnp.asarray(start))
-    got = K.fps(_torch(xyz), npoint, _torch(start))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = K.fps(_torch(xyz), npoint, _torch(start)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert (got[:, 0] == start).all()
+    if same:
+        assert (got[:, 1:] == 0).all()
+    elif npoint == N:
+        # N - 5 distinct points are taken once each; then every field is
+        # 0 and each step takes index 0
+        for row in got:
+            assert len(set(row[:N - 5].tolist())) == N - 5
+            assert (row[N - 5:] == 0).all()
+
+
+def _nn_plain_order(q: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """``(|q|^2 - 2 q.p) + |p|^2`` [B, Nq, N] in numpy f32, every sum left
+    to right and every operation rounded on its own: the order the 1-NN
+    kernel (`csrc/nn.cu`) and the plain version keep."""
+    C = q.shape[-1]
+    qn, pn = q[..., 0] * q[..., 0], p[..., 0] * p[..., 0]
+    cross = q[:, :, None, 0] * p[:, None, :, 0]
+    for c in range(1, C):
+        qn = qn + q[..., c] * q[..., c]
+        pn = pn + p[..., c] * p[..., c]
+        cross = cross + q[:, :, None, c] * p[:, None, :, c]
+    return (qn[:, :, None] - np.float32(2.0) * cross) + pn[:, None, :]
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_nn_duplicates_and_queries_on_points_match_pallas(C):
+    """The 1-NN at k = 1 for C = 1..4 with every point twice and queries
+    placed on points (d = 0): indices equal the JAX package's (Pallas in
+    interpret mode) and the first minimum of the plain-order distances,
+    which the port's distances equal bit for bit; against the JAX
+    package's distances within 1e-5."""
+    rng = np.random.RandomState(24)
+    base = rng.randn(2, 60, C).astype(np.float32)
+    p = np.concatenate([base, base], axis=1)          # every point twice
+    q = rng.randn(2, 90, C).astype(np.float32)
+    q[:, :30] = base[:, 10:40]                        # queries on points
+    got_d, got_i = K.knn(_torch(q), _torch(p), 1)
+    want_d, want_i = PK.knn_pallas(jnp.asarray(q), jnp.asarray(p), 1)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    d = _nn_plain_order(q, p)
+    first = d.argmin(axis=-1)
+    np.testing.assert_array_equal(got_i.numpy()[..., 0], first)
+    np.testing.assert_array_equal(got_i.numpy()[:, :30, 0],
+                                  np.broadcast_to(np.arange(10, 40), (2, 30)))
+    np.testing.assert_array_equal(
+        got_d.numpy()[..., 0].view(np.uint32),
+        np.take_along_axis(d, first[..., None], -1)[..., 0].view(np.uint32))
+    assert (got_d.numpy()[:, :30] == 0).all()
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_cpu_tensors_take_plain_versions_without_launching():
