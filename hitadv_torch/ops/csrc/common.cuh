@@ -1,6 +1,10 @@
 // Shared pieces of the scatter kernels (scatter_add_rows.cu,
-// graph_max_pool.cu) and the kNN (knn.cu):
+// graph_max_pool.cu), the kNN (knn.cu) and the row gather
+// (gather_rows.cu):
 //   * f32 <-> storage-type conversions (f32 or bf16);
+//   * grids of (x, cloud) blocks, and a 32-bit division by a runtime
+//     constant as a multiply-high (Divider), for kernels that map a flat
+//     per-cloud index to (row, column) without a 64-bit division;
 //   * a per-batch counting sort of destination indices into a CSR of
 //     sources, which lets a scatter-add run as a gather: every output
 //     row sums its own sources in ascending source order, with no float
@@ -206,6 +210,37 @@ inline unsigned grid_for(long long total, int threads) {
   if (blocks > 132LL * 32) blocks = 132LL * 32;   // grid-stride beyond this
   if (blocks < 1) blocks = 1;
   return (unsigned)blocks;
+}
+
+// A grid of (x, clouds) blocks for ``per_cloud`` work items a cloud
+// (blockIdx.y is the cloud, strided beyond 65535) of ``threads`` each,
+// capped at about 16 blocks an SM in all (two waves of 256-thread blocks
+// at full occupancy); the items beyond take a grid-stride loop.
+inline dim3 grid_2d(long long per_cloud, int threads, long long B) {
+  const long long y = B < 65535 ? (B > 0 ? B : 1) : 65535;
+  long long x = (per_cloud + threads - 1) / threads;
+  const long long cap = (132LL * 16 + y - 1) / y;
+  if (x > cap) x = cap;
+  if (x < 1) x = 1;
+  return dim3((unsigned)x, (unsigned)y);
+}
+
+// n / d for every 32-bit n by one multiply-high, an add and a shift (d >=
+// 1): the round-up method with a 33-bit multiplier 2^32 + magic, whose
+// top bit is the add, done in 64 bits so it cannot overflow.
+struct Divider {
+  unsigned magic, shift;
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return (unsigned)(((unsigned long long)__umulhi(n, magic) + n) >> shift);
+  }
+};
+
+inline Divider make_divider(unsigned d) {
+  unsigned shift = 0;
+  while (shift < 32 && (1ULL << shift) < d) ++shift;
+  const unsigned long long magic =
+      ((1ULL << 32) * ((1ULL << shift) - d)) / d + 1;
+  return Divider{(unsigned)magic, shift};
 }
 
 }  // namespace hitadv

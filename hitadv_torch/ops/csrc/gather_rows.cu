@@ -1,85 +1,217 @@
 // Batched row gather: out[b, m, :] = x[b, idx[b, m], :], bit for bit.
 //
-// Replaces: hitadv_tpu/ops/pallas_kernels.py::gather_rows_pallas
-// (:1899), kernel body _gather_rows_kernel (:1650). The TPU kernel is a
-// one-hot matmul on the MXU (with an exact 3-plane bf16 split for f32,
-// _split3_bf16); on a GPU a row gather is a direct indexed load, so
-// none of that is needed.
+// Replaces: hitadv_tpu/ops/pallas_kernels.py::gather_rows_pallas (:1899,
+// call :1926), kernel body _gather_rows_kernel (:1650). The TPU kernel is
+// a one-hot matmul on the MXU (with an exact 3-plane bf16 split for f32,
+// _split3_bf16); on a GPU a row gather is a direct indexed load, so none
+// of that is needed.
 //
 // What bounds it on an H100: bytes. It reads the index and the gathered
-// rows and writes the output once: at the HiT-ADV prep shape (x [64,
-// 1024, 3] f32, idx [64, 16384]) that is 17.4 MB, 5 us at 3.35 TB/s.
+// rows and writes the output once. At PointConv's field gathers (x [16,
+// 1024, 73] and [16, 512, 137] bf16, rows of 146 and 274 bytes, by [16,
+// 16384] and [16, 8192] indices) that is 41.7 and 38.7 MB, 12.4 and 11.5
+// us at 3.35 TB/s; the sources (2.4 and 2.2 MB) stay in L2, and the 38.3
+// and 35.9 MB of output are the bytes that reach HBM. At the xyz gathers
+// (rows of 12 bytes) the index is a quarter of the bytes.
 //
-// Design: rows are copied as raw units of 16, 8, 4 or 2 bytes (the
-// widest that divides the row's byte width and the base pointers'
-// alignment), one unit per thread, grid-stride. Neighbouring threads
-// read neighbouring units of one row, so a wide row is one coalesced
-// load. Indices may be int32 or int64. Indices must lie in [0, N); the
-// callers produce them from kNN, FPS or argmax.
+// Design: the work is organised by cloud (blockIdx.y) and row, with no
+// 64-bit division (a row from a 32-bit multiply-high, common.cuh's
+// Divider), in one of two kernels, one launch a call:
+//   * rows of whole units (gather_units_kernel): the unit is the widest of
+//     16, 8, 4, 2 or 1 bytes that divides the row and both bases, and a
+//     thread copies one unit, so the threads of a row are neighbours and
+//     load its index as one broadcast. Every row of at most 16 bytes
+//     (xyz: 4-byte units, three a row) and every aligned row of whole
+//     16-byte units (PCT's centre features) goes here. A thread a row
+//     copying its units itself, tried first for the narrow rows, was
+//     slower at the large xyz gathers (PERF.md): a warp's loads then
+//     touch 32 rows each, against about 11 here;
+//   * wider rows of no whole 16-byte units (gather_words_kernel; the
+//     fields' 146 and 274 bytes): a cloud's output is one run of M R
+//     bytes, written as aligned 16-byte words whatever R is. A thread a
+//     word finds the row holding its first byte, loads that row's index,
+//     and assembles the word from the aligned 4-byte source words that
+//     hold its bytes (funnel shifts, no word select); a word that
+//     straddles two rows takes the rest from the next row. Neighbouring
+//     lanes write neighbouring words, 512 contiguous bytes a warp, as
+//     streaming stores (__stcs), which leave L2 to the sources. Offsets
+//     inside a cloud are 32-bit. Only the at most two words a cloud
+//     shares with its neighbours (or the ends of out) go byte by byte.
+//     Against the first version of this kernel (two aligned 16-byte
+//     source loads, a select of 4 of their 8 words, 64-bit addresses,
+//     plain stores) this took about a third off the field gathers
+//     (PERF.md): the word assembly, not the bytes, set its pace.
+// Indices may be int32 or int64 and must lie in [0, N); the callers
+// produce them from kNN, FPS or argmax.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
+constexpr int THREADS = 256;
+
+// A thread a unit e of a cloud's M units-wide output.
 template <typename U, typename I>
-__global__ void gather_rows_kernel(const U* __restrict__ x,
-                                   const I* __restrict__ idx,
-                                   U* __restrict__ out, long long total,
-                                   long long M, long long N, int units) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long bm = e / units;   // flat (b, m)
-    const int u = (int)(e - bm * units);
-    const long long b = bm / M;
-    const long long n = (long long)idx[bm];
-    out[e] = x[(b * N + n) * units + u];
+__global__ void __launch_bounds__(THREADS)
+gather_units_kernel(const U* __restrict__ x, const I* __restrict__ idx,
+                    U* __restrict__ out, int B, long long N, unsigned M,
+                    unsigned units, hitadv::Divider by_units) {
+  const unsigned total = M * units;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const I* ib = idx + (size_t)b * M;
+    const U* xb = x + (size_t)b * N * units;
+    U* ob = out + (size_t)b * total;
+    for (unsigned e = blockIdx.x * THREADS + threadIdx.x; e < total;
+         e += gridDim.x * THREADS) {
+      const unsigned m = by_units.div(e);
+      ob[e] = xb[(size_t)ib[m] * units + (e - m * units)];
+    }
+  }
+}
+
+// The 16 source bytes at offset p from xc (4-byte aligned), of which only
+// those at [lo, hi) (inside [p, p + 16)) must be right: the aligned
+// 4-byte words holding a needed byte are loaded, no other, and shifted
+// into place. p may lie below xc (a straddling word's start in row 0):
+// the arithmetic is modulo 2^32, and a word wrapped below xc is never
+// loaded, since hi stays far below 2^32 (a cloud's bytes < 2^31).
+__device__ __forceinline__ uint4 window16(const unsigned char* xc,
+                                          unsigned p, unsigned lo,
+                                          unsigned hi) {
+  const unsigned w0 = p & ~3u;
+  uint32_t t[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const unsigned q = w0 + 4 * k;
+    t[k] = q + 4 > lo && q < hi
+               ? __ldg(reinterpret_cast<const unsigned*>(xc + q))
+               : 0u;
+  }
+  const unsigned bits = (p & 3) * 8;
+  return make_uint4(__funnelshift_r(t[0], t[1], bits),
+                    __funnelshift_r(t[1], t[2], bits),
+                    __funnelshift_r(t[2], t[3], bits),
+                    __funnelshift_r(t[3], t[4], bits));
+}
+
+// Bytes [0, p) of v, the rest of u (0 < p < 16).
+__device__ __forceinline__ uint4 splice(uint4 v, uint4 u, unsigned p) {
+  uint32_t r[4];
+  const uint32_t vv[4] = {v.x, v.y, v.z, v.w}, uu[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int keep = min(max((int)p - 4 * i, 0), 4);    // bytes of v
+    const uint32_t mask = keep == 4 ? 0xffffffffu : (1u << (8 * keep)) - 1;
+    r[i] = (vv[i] & mask) | (uu[i] & ~mask);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// A thread an aligned 16-byte word of a cloud's output run of M R bytes
+// (R > 16; M R and N R < 2^31).
+template <typename I>
+__global__ void __launch_bounds__(THREADS)
+gather_words_kernel(const unsigned char* __restrict__ x,
+                    const I* __restrict__ idx,
+                    unsigned char* __restrict__ out, int B, long long N,
+                    unsigned M, unsigned R, hitadv::Divider by_row) {
+  const unsigned long long L = (unsigned long long)M * R;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const I* ib = idx + (size_t)b * M;
+    // the cloud's rows from a 4-byte aligned base d bytes below them
+    const uintptr_t xr = reinterpret_cast<uintptr_t>(x + (size_t)b * N * R);
+    const unsigned char* xc =
+        reinterpret_cast<const unsigned char*>(xr & ~(uintptr_t)3);
+    const unsigned d = (unsigned)(xr & 3);
+    const uintptr_t ob = reinterpret_cast<uintptr_t>(out) + b * L;
+    const uintptr_t oe = ob + L;
+    const uintptr_t first = ob >> 4;
+    const unsigned words = (unsigned)(((oe - 1) >> 4) - first + 1);
+    for (unsigned i = blockIdx.x * THREADS + threadIdx.x; i < words;
+         i += gridDim.x * THREADS) {
+      const uintptr_t g = (first + i) << 4;
+      if (g >= ob && g + 16 <= oe) {
+        const unsigned o = (unsigned)(g - ob);
+        const unsigned m = by_row.div(o);
+        const unsigned off = o - m * R;
+        const unsigned p = R - off;               // row m's bytes from g on
+        const unsigned a = d + (unsigned)ib[m] * R + off;
+        uint4 v = window16(xc, a, a, a + min(p, 16u));
+        if (p < 16) {                             // the rest: row m + 1
+          const unsigned c = d + (unsigned)ib[m + 1] * R;
+          v = splice(v, window16(xc, c - p, c, c + 16 - p), p);
+        }
+        __stcs(reinterpret_cast<uint4*>(g), v);
+      } else {
+        // a word shared with a neighbouring cloud or past an end of out:
+        // only this cloud's bytes, one by one
+        const uintptr_t lo = g > ob ? g : ob, hi = g + 16 < oe ? g + 16 : oe;
+        for (uintptr_t e = lo; e < hi; ++e) {
+          const unsigned o = (unsigned)(e - ob);
+          const unsigned m = by_row.div(o);
+          *reinterpret_cast<unsigned char*>(e) =
+              xc[d + (unsigned)ib[m] * R + (o - m * R)];
+        }
+      }
+    }
   }
 }
 
 template <typename U, typename I>
-int launch(const void* x, const void* idx, void* out, long long B,
-           long long N, long long M, int units, cudaStream_t stream) {
-  const long long total = B * M * units;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;   // grid-stride beyond this
-  gather_rows_kernel<U, I><<<(unsigned)blocks, threads, 0, stream>>>(
+void units_launch(const void* x, const void* idx, void* out, long long B,
+                  long long N, long long M, int units, cudaStream_t s) {
+  gather_units_kernel<U, I><<<hitadv::grid_2d(M * units, THREADS, B),
+                              THREADS, 0, s>>>(
       static_cast<const U*>(x), static_cast<const I*>(idx),
-      static_cast<U*>(out), total, M, N, units);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<U*>(out), (int)B, N, (unsigned)M, (unsigned)units,
+      hitadv::make_divider((unsigned)units));
 }
 
 template <typename I>
-int by_unit(const void* x, const void* idx, void* out, long long B,
-            long long N, long long M, long long row_bytes, int unit,
-            cudaStream_t s) {
-  const int units = (int)(row_bytes / unit);
-  switch (unit) {
-    case 16: return launch<uint4, I>(x, idx, out, B, N, M, units, s);
-    case 8: return launch<uint2, I>(x, idx, out, B, N, M, units, s);
-    case 4: return launch<uint32_t, I>(x, idx, out, B, N, M, units, s);
-    case 2: return launch<uint16_t, I>(x, idx, out, B, N, M, units, s);
-    default: return launch<uint8_t, I>(x, idx, out, B, N, M, units, s);
+int gather(const void* x, const void* idx, void* out, long long B,
+           long long N, long long M, long long R, cudaStream_t s) {
+  if (B * M == 0 || R == 0) return static_cast<int>(cudaGetLastError());
+  // the widest unit that divides the row and both bases
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(out);
+  int unit = 16;
+  while (unit > 1 && (R % unit != 0 || align % unit != 0)) unit /= 2;
+  if (R > 16 && unit < 16) {
+    const long long words = (M * R + 30) / 16;   // at most, a cloud
+    gather_words_kernel<I><<<hitadv::grid_2d(words, THREADS, B), THREADS,
+                             0, s>>>(
+        static_cast<const unsigned char*>(x), static_cast<const I*>(idx),
+        static_cast<unsigned char*>(out), (int)B, N, (unsigned)M,
+        (unsigned)R, hitadv::make_divider((unsigned)R));
+    return static_cast<int>(cudaGetLastError());
   }
+  const int units = (int)(R / unit);
+  switch (unit) {
+    case 16: units_launch<uint4, I>(x, idx, out, B, N, M, units, s); break;
+    case 8: units_launch<uint2, I>(x, idx, out, B, N, M, units, s); break;
+    case 4: units_launch<uint32_t, I>(x, idx, out, B, N, M, units, s); break;
+    case 2: units_launch<uint16_t, I>(x, idx, out, B, N, M, units, s); break;
+    default: units_launch<uint8_t, I>(x, idx, out, B, N, M, units, s); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x [B, N, row_bytes] raw bytes, idx [B, M] (idx_bytes 4 or 8),
-// out [B, M, row_bytes]. All contiguous.
+// out [B, M, row_bytes]. All contiguous; N row_bytes and M row_bytes
+// below 2^31.
 extern "C" int gather_rows(const void* x, const void* idx, void* out,
                            long long B, long long N, long long M,
                            long long row_bytes, int idx_bytes, void* stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
-                          reinterpret_cast<uintptr_t>(out);
-  int unit = 16;
-  while (unit > 1 && (row_bytes % unit != 0 || align % unit != 0)) unit /= 2;
+  if (N * row_bytes >= (1LL << 31) || M * row_bytes >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 8)
-    return by_unit<long long>(x, idx, out, B, N, M, row_bytes, unit, s);
-  return by_unit<int>(x, idx, out, B, N, M, row_bytes, unit, s);
+    return gather<long long>(x, idx, out, B, N, M, row_bytes, s);
+  return gather<int>(x, idx, out, B, N, M, row_bytes, s);
 }

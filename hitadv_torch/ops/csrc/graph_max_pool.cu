@@ -12,13 +12,29 @@
 //     mx[b, n, c]   = max_j y[b, idx[b, n, j], c]
 //     slot[b, n, c] = the first j attaining it
 // in one pass over the k neighbours with a strict `>` fold from -inf
-// (slot 0 when nothing beats -inf), compared in f32 (exact for bf16),
-// stored in y's dtype (exact: it is one of the inputs). One thread per
-// output element; the threads of a warp share a row, so the index loads
-// are broadcasts and the y loads are coalesced along c.
-// What bounds it on an H100: bytes. At DGCNN's widest layer (y [16, 1024,
-// 256] bf16, k=20) it reads 8.4 MB of y and 1.3 MB of idx and writes
-// 8.4 MB of mx and 16.8 MB of slots: 10 us at 3.35 TB/s.
+// (slot 0 when nothing beats -inf, NaN never chosen), compared as f32
+// (exact for bf16), stored in y's dtype (exact: it is one of the inputs).
+// What bounds it on an H100: bytes, counting each input and output once.
+// At DGCNN's widest layer (y [16, 1024, 256] bf16, k=20) it reads 8.4 MB
+// of y and 1.3 MB of idx and writes 8.4 MB of mx and 16.8 MB of slots:
+// 10 us at 3.35 TB/s. Each point reads its k neighbours' rows, though:
+// k = 20 times y, 168 MB at C' = 256 (42 and 84 MB at 64 and 128), which
+// stays in L2 (y is 2 to 8 MB) and is the real floor, with the compares.
+// Design: a thread owns 16 bytes of one point's channels (8 bf16 or 4
+// f32; MaxFold), so a point's C' / 8 threads (8, 16 or 32 at DGCNN's
+// widths) are neighbours, on a 2-D grid (cloud in blockIdx.y, the point
+// from a 32-bit multiply-high: no 64-bit division). Its index row comes
+// in 16-byte loads of four neighbours, broadcast among its threads and
+// loaded once, not once a channel; the neighbours go four at a time,
+// their four 16-byte loads issued before the four folds; a bf16 fold
+// compares channel pairs with __hgt2_mask, which is the f32 compare of
+// the widened values, at a third of the instructions (the compares, not
+// the L2 bytes, held the first version: PERF.md). mx is one 16-byte store
+// a thread, the slots (int32, the contract with the backward) two. A C'
+// that is no multiple of the vector, a base off 16 bytes or k >= 65536
+// takes one channel a thread in the same kernel. A variant that staged a
+// cloud's 32-channel slice in shared memory (a block per cloud, slice and
+// point tile) was slower at every path width (PERF.md) and is not kept.
 //
 // Backward (graph_max_pool_bwd): gy[b, idx[b, n, slot[b, n, c]], c] +=
 // g[b, n, c], accumulated in f32, stored in g's dtype. Deterministic with
@@ -44,6 +60,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
 
@@ -52,30 +69,144 @@ namespace {
 using hitadv::from_f32;
 using hitadv::to_f32;
 
-template <typename T, typename I>
-__global__ void gmp_fwd_kernel(const T* __restrict__ y,
-                               const I* __restrict__ idx, T* __restrict__ mx,
-                               int* __restrict__ slot, long long total,
-                               int P, int N, int K, int C) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const long long bn = e / C;
-    const int c = (int)(e - bn * C);
-    const long long b = bn / N;
-    const I* ir = idx + bn * K;
-    const T* yb = y + b * P * C + c;
-    float best = -INFINITY;
-    int bj = 0;
-    for (int j = 0; j < K; ++j) {
-      const float v = to_f32(yb[(long long)ir[j] * C]);
-      if (v > best) {
-        best = v;
-        bj = j;
-      }
+// The running max and first argmax of V channels of y over a point's
+// neighbours, each neighbour's V channels one load (Raw): one element
+// (V = 1) or 16 bytes (V = 4 f32, V = 8 bf16). fold(r, j) replaces a
+// channel's max and slot where the neighbour's value is strictly greater,
+// in f32 (exact for bf16); NaN is never greater, and slot 0 stands when
+// nothing beats -inf. The bf16 vector compares pairs with __hgt2_mask:
+// widening bf16 to f32 is exact and keeps the order, so this is the f32
+// compare, bit for bit, at a third of the instructions; it keeps maxima
+// and slots as packed pairs (slots below 65536).
+template <typename T, int V> struct MaxFold;
+template <typename T> struct MaxFold<T, 1> {
+  using Raw = T;
+  float best = -INFINITY;
+  int bj = 0;
+  __device__ static Raw load(const T* p) { return *p; }
+  __device__ void fold(Raw r, int j) {
+    const float x = to_f32(r);
+    if (x > best) best = x, bj = j;
+  }
+  __device__ void store(T* p, int* sp) const {
+    *p = from_f32<T>(best);
+    *sp = bj;
+  }
+};
+template <> struct MaxFold<float, 4> {
+  using Raw = float4;
+  float best[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  int bj[4] = {0, 0, 0, 0};
+  __device__ static Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ void fold(Raw r, int j) {
+    const float x[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      if (x[v] > best[v]) best[v] = x[v], bj[v] = j;
+  }
+  __device__ void store(float* p, int* sp) const {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(best[0], best[1], best[2], best[3]);
+    *reinterpret_cast<int4*>(sp) = make_int4(bj[0], bj[1], bj[2], bj[3]);
+  }
+};
+template <> struct MaxFold<__nv_bfloat16, 8> {
+  using Raw = uint4;
+  uint32_t best[4] = {0xff80ff80u, 0xff80ff80u, 0xff80ff80u, 0xff80ff80u};
+  uint32_t bj[4] = {0, 0, 0, 0};         // slot pairs, 16 bits each
+  __device__ static Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ void fold(Raw r, int j) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    const uint32_t jj = (uint32_t)j * 0x10001u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 a, b;
+      memcpy(&a, &w[i], 4);
+      memcpy(&b, &best[i], 4);
+      const uint32_t gt = __hgt2_mask(a, b);   // 0xffff where a > b
+      best[i] = (w[i] & gt) | (best[i] & ~gt);
+      bj[i] = (jj & gt) | (bj[i] & ~gt);
     }
-    mx[e] = from_f32<T>(best);
-    slot[e] = bj;
+  }
+  __device__ void store(__nv_bfloat16* p, int* sp) const {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(best[0], best[1], best[2], best[3]);
+    *reinterpret_cast<int4*>(sp) = make_int4(
+        bj[0] & 0xffff, bj[0] >> 16, bj[1] & 0xffff, bj[1] >> 16);
+    *reinterpret_cast<int4*>(sp + 4) = make_int4(
+        bj[2] & 0xffff, bj[2] >> 16, bj[3] & 0xffff, bj[3] >> 16);
+  }
+};
+
+// Neighbours j0 .. j0 + 3 of a point's index row ir (0 past K): one
+// 16-byte load (two for int64) where the rows are whole vectors.
+template <typename I>
+__device__ __forceinline__ void load_nbrs(const I* ir, int j0, int K,
+                                          bool vec, long long (&n)[4]);
+template <>
+__device__ __forceinline__ void load_nbrs<int>(const int* ir, int j0, int K,
+                                               bool vec, long long (&n)[4]) {
+  if (vec) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(ir + j0));
+    n[0] = v.x, n[1] = v.y, n[2] = v.z, n[3] = v.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) n[t] = j0 + t < K ? __ldg(ir + j0 + t) : 0;
+  }
+}
+template <>
+__device__ __forceinline__ void load_nbrs<long long>(const long long* ir,
+                                                     int j0, int K, bool vec,
+                                                     long long (&n)[4]) {
+  if (vec) {
+    const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(ir + j0));
+    const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(ir + j0 + 2));
+    n[0] = a.x, n[1] = a.y, n[2] = b.x, n[3] = b.y;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) n[t] = j0 + t < K ? __ldg(ir + j0 + t) : 0;
+  }
+}
+
+// A thread a (point, V channels) of one cloud (blockIdx.y): the point's
+// threads are neighbours, so its index row is a broadcast load (whole
+// vectors of 4 neighbours where ``vec``) and each neighbour's V channels
+// are one coalesced load. The neighbours go four at a time, in ascending
+// j: their four loads issue before the four folds.
+template <typename T, typename I, int V>
+__global__ void __launch_bounds__(256)
+gmp_fwd_kernel(const T* __restrict__ y, const I* __restrict__ idx,
+               T* __restrict__ mx, int* __restrict__ slot, int B, int P,
+               int N, int K, int C, hitadv::Divider by_vecs, bool vec) {
+  using F = MaxFold<T, V>;
+  const unsigned vecs = C / V;
+  const unsigned total = (unsigned)N * vecs;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const T* yb = y + (size_t)b * P * C;
+    for (unsigned e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
+         e += gridDim.x * blockDim.x) {
+      const unsigned n = by_vecs.div(e);
+      const int c = (int)(e - n * vecs) * V;
+      const size_t bn = (size_t)b * N + n;
+      const I* ir = idx + bn * K;
+      F f;
+      for (int j0 = 0; j0 < K; j0 += 4) {
+        long long nb[4];
+        load_nbrs<I>(ir, j0, K, vec, nb);
+        typename F::Raw r[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (j0 + t < K) r[t] = F::load(yb + nb[t] * C + c);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (j0 + t < K) f.fold(r[t], j0 + t);
+      }
+      f.store(mx + bn * C + c, slot + bn * C + c);
+    }
   }
 }
 
@@ -191,14 +322,32 @@ __global__ void gmp_bwd_kernel(const T* __restrict__ g,
   }
 }
 
+template <typename T, typename I, int V>
+void fwd_launch(const void* y, const void* idx, void* mx, int* slot, int B,
+                int P, int N, int K, int C, bool vec, cudaStream_t s) {
+  gmp_fwd_kernel<T, I, V><<<hitadv::grid_2d((long long)N * (C / V), 256, B),
+                            256, 0, s>>>(
+      static_cast<const T*>(y), static_cast<const I*>(idx),
+      static_cast<T*>(mx), slot, B, P, N, K, C,
+      hitadv::make_divider((unsigned)(C / V)), vec);
+}
+
 template <typename T, typename I>
 int fwd(const void* y, const void* idx, void* mx, int* slot, int B, int P,
         int N, int K, int C, cudaStream_t s) {
-  const long long total = (long long)B * N * C;
-  if (total == 0) return static_cast<int>(cudaGetLastError());
-  gmp_fwd_kernel<T, I><<<hitadv::grid_for(total, 256), 256, 0, s>>>(
-      static_cast<const T*>(y), static_cast<const I*>(idx),
-      static_cast<T*>(mx), slot, total, P, N, K, C);
+  if ((long long)B * N * C == 0) return static_cast<int>(cudaGetLastError());
+  // the index rows as whole 16-byte vectors of 4 neighbours
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
+  // 16 bytes of channels a thread where C, every base and K allow it,
+  // else one channel a thread
+  constexpr int V = 16 / sizeof(T);
+  const uintptr_t al = reinterpret_cast<uintptr_t>(y) |
+                       reinterpret_cast<uintptr_t>(mx) |
+                       reinterpret_cast<uintptr_t>(slot);
+  if (C % V == 0 && al % 16 == 0 && K < 65536)
+    fwd_launch<T, I, V>(y, idx, mx, slot, B, P, N, K, C, vec, s);
+  else
+    fwd_launch<T, I, 1>(y, idx, mx, slot, B, P, N, K, C, vec, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -147,6 +147,24 @@ def test_gather_rows_bitwise(shape, M, bf16):
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("C,S,ns", [(73, 16, 8), (137, 8, 16)])
+def test_gather_rows_field_widths_match_pallas(C, S, ns):
+    """PointConv's field gathers: bf16 rows 64 + 8 + 1 and 128 + 8 + 1
+    wide (146 and 274 bytes) by S-major kNN indices [B, S * ns]."""
+    rng = np.random.RandomState(19)
+    N = 64
+    x = _bf16_values(rng.randn(2, N, C).astype(np.float32))
+    idx = np.stack([np.stack([rng.choice(N, ns, replace=False)
+                              for _ in range(S)]) for _ in range(2)])
+    idx = idx.reshape(2, S * ns).astype(np.int32)
+    want = np.asarray(PK.gather_rows_pallas(jnp.asarray(x, jnp.bfloat16),
+                                            jnp.asarray(idx)
+                                            ).astype(jnp.float32))
+    got = K.gather_rows(_torch(x, torch.bfloat16), _torch(idx))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, S * ns, C)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 @pytest.mark.parametrize("Nq,N,k", [(100, 130, 8), (130, 100, 5)])
 def test_knn_indices_match_pallas(Nq, N, k):
     rng = np.random.RandomState(5)
@@ -332,6 +350,34 @@ def test_graph_max_pool_matches_pallas(N, k, C, bf16):
     assert got_g.dtype == tdt
     np.testing.assert_array_equal(got_g.float().numpy(),
                                   np.asarray(want_g.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_graph_max_pool_all_inf_neighbourhood_matches_pallas(bf16):
+    """k = 20, C = 64: in the second cloud the first 8 channels are -inf
+    at every point, so every neighbourhood there is all -inf and the
+    strict `>` fold from -inf keeps slot 0 and -inf on both sides. (The
+    Pallas kernel gathers by a one-hot product, in which a -inf anywhere
+    in a cloud's channel turns that whole channel into NaN, which never
+    wins either; so only whole -inf channels are comparable.)"""
+    rng = np.random.RandomState(20)
+    N, k, C = 100, 20, 64
+    y = rng.randn(2, N, C).astype(np.float32)
+    y[1, :, :8] = -np.inf
+    if bf16:
+        y = _bf16_values(y)
+    idx = rng.randint(0, N, (2, N, k)).astype(np.int32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                           torch.float32)
+    want_mx, want_slot = PK.graph_max_pool_pallas(jnp.asarray(y, jdt),
+                                                  jnp.asarray(idx))
+    got_mx, got_slot = K.graph_max_pool(_torch(y, tdt), _torch(idx))
+    np.testing.assert_array_equal(got_mx.float().numpy(),
+                                  np.asarray(want_mx.astype(jnp.float32)))
+    np.testing.assert_array_equal(got_slot.numpy(), np.asarray(want_slot))
+    assert np.all(got_mx[1, :, :8].float().numpy() == -np.inf)
+    assert np.all(got_slot[1, :, :8].numpy() == 0)
+    assert np.all(np.isfinite(got_mx[:, :, 8:].float().numpy()))
 
 
 def test_graph_max_pool_vjp_matches_jax_custom_vjp():
@@ -749,7 +795,7 @@ def test_gaussian_blend_fused_plain_chunks_sum_alike():
 
 def _port_files():
     return sorted((ROOT / "hitadv_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_turns.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
