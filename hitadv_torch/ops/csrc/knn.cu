@@ -1,5 +1,6 @@
-// Exact k-nearest neighbours (any C up to 256, f32 or bf16 inputs, k up
-// to 64), ascending by squared distance, ties to the lowest point index:
+// Exact k-nearest neighbours (any C up to 256, f32 or bf16 inputs, any
+// k <= N in passes of up to 64), ascending by squared distance, ties to
+// the lowest point index:
 // the HiT-ADV prep's, CW-UKNN's and the evaluation's coordinate kNN,
 // PCT's and PointConv's grouping, and DGCNN's dynamic graph in coordinate
 // and feature space. The k = 1 queries of f32 coordinates are nn.cu.
@@ -78,6 +79,16 @@
 //     second pass would double the expensive stage, so the bound is taken
 //     from the first tile only (it holds at least k points), which keeps
 //     its entrants to about k; later tiles meet about k ln(N / 128).
+//
+// k > 64 (a list holds at most PASS = 64 entries): continuation passes.
+// Pass p writes columns [64 p, min(k, 64 p + 64)) of the outputs and
+// offers only the candidates strictly after pass p - 1's last (distance,
+// index) pair, which it reads back from column 64 p - 1 as a per-query
+// lower bound; the radix-select bound then counts only those eligible
+// candidates. The order is total, so the passes give exactly what a
+// stable sort gives for any k <= N. The bound is compiled in only where
+// it is needed (the template flag PASSES): the k <= 64 kernels are the
+// single-pass ones, unchanged. Each pass is one launch.
 
 #include <climits>
 #include <cmath>
@@ -93,6 +104,37 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool before(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
+}
+
+constexpr int PASS = 64;   // entries a list holds: the columns of a pass
+
+// A continuation pass's lower bound: the previous pass's last (distance,
+// index) pair of a query; a candidate is eligible strictly after it.
+// Without PASSES (or in a first pass) every candidate is eligible.
+template <bool PASSES>
+struct After {
+  float d;
+  int i;
+  bool on = false;
+  __device__ __forceinline__ void load(const float* od, const int* oi,
+                                       size_t row, int ldk, int col0) {
+    on = PASSES && col0 > 0;
+    if (on) {
+      d = od[row * ldk + col0 - 1];
+      i = oi[row * ldk + col0 - 1];
+    }
+  }
+  __device__ __forceinline__ bool ok(float cd, int ci) const {
+    return !PASSES || !on || before(d, i, cd, ci);
+  }
+};
+
+// The output row of query `row`: its k columns, or, with PASSES, this
+// pass's columns [col0, col0 + k) of a row of ldk.
+template <bool PASSES>
+__device__ __forceinline__ size_t out_at(size_t row, int k, int ldk,
+                                         int col0) {
+  return PASSES ? row * ldk + col0 : row * k;
 }
 
 // The warp's sorted list of the k best (distance, index) pairs: slot s in
@@ -306,11 +348,11 @@ constexpr int XYZ_WARPS = 4;    // warps per block, all of one cloud
 constexpr int XYZ_P = 4;        // points a lane per step: 128 a warp
 constexpr int XYZ_TILE = 1024;  // points per shared-memory tile
 
-template <int C, int S, int QW>
+template <int C, int S, int QW, bool PASSES>
 __global__ void __launch_bounds__(XYZ_WARPS * 32)
 knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
                float* __restrict__ out_d, int* __restrict__ out_i, int Nq,
-               int N, int k) {
+               int N, int k, int ldk, int col0) {
   constexpr int T = 2 * S;   // values a lane keeps for the threshold
   __shared__ float ps[C + 1][XYZ_TILE];   // coordinates, then norms
   __shared__ float sd[XYZ_WARPS][32 * S];
@@ -336,11 +378,14 @@ knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
   float keep[QW][T];   // pass 0: this lane's T smallest distances
   float tau[QW];       // pass 1: only distances <= tau are offered
   TopK<S> top[QW];
+  After<PASSES> lo[QW];   // a continuation pass's lower bound
 #pragma unroll
   for (int a = 0; a < QW; ++a) {
 #pragma unroll
     for (int s = 0; s < T; ++s) keep[a][s] = INFINITY;
     top[a].init();
+    if (g0 + a < Nq)
+      lo[a].load(out_d, out_i, (size_t)b * Nq + g0 + a, ldk, col0);
   }
 
   // the bound pays where a lane meets more than its T smallest
@@ -389,7 +434,9 @@ knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
           for (int pp = 0; pp < XYZ_P; ++pp)
             if (base + 32 * pp + lane < cnt)
 #pragma unroll
-              for (int a = 0; a < QW; ++a) keep_smallest(keep[a], dd[pp][a]);
+              for (int a = 0; a < QW; ++a)
+                if (lo[a].ok(dd[pp][a], t0 + base + 32 * pp + lane))
+                  keep_smallest(keep[a], dd[pp][a]);
           continue;
         }
         // which (point batch, query) pairs have an entrant: one warp OR
@@ -399,8 +446,9 @@ knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
 #pragma unroll
           for (int a = 0; a < QW; ++a) {
             const float d = dd[pp][a];
-            if (g0 + a < Nq && base + 32 * pp + lane < cnt && d <= tau[a] &&
-                top[a].wants(d, k))
+            const int e = base + 32 * pp + lane;
+            if (g0 + a < Nq && e < cnt && d <= tau[a] &&
+                lo[a].ok(d, t0 + e) && top[a].wants(d, k))
               bits |= 1u << (pp * QW + a);
           }
         bits = __reduce_or_sync(FULL, bits);
@@ -411,8 +459,9 @@ knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
           for (int a = 0; a < QW; ++a)
             if ((bits >> (pp * QW + a)) & 1u)
               top[a].offer(dd[pp][a], t0 + base + 32 * pp,
-                           e < cnt && dd[pp][a] <= tau[a], lane, k, sd[w],
-                           si[w]);
+                           e < cnt && dd[pp][a] <= tau[a] &&
+                               lo[a].ok(dd[pp][a], t0 + e),
+                           lane, k, sd[w], si[w]);
         }
       }
     }
@@ -421,7 +470,8 @@ knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
 #pragma unroll
   for (int a = 0; a < QW; ++a)
     if (g0 + a < Nq) {
-      const size_t o = ((size_t)b * Nq + g0 + a) * k;
+      const size_t o =
+          out_at<PASSES>((size_t)b * Nq + g0 + a, k, ldk, col0);
       top[a].store(out_d + o, out_i + o, lane, k);
     }
 }
@@ -502,11 +552,11 @@ __device__ __forceinline__ float row_norm(const float4* row, int C4) {
   return s;
 }
 
-template <typename T, int S>
+template <typename T, int S, bool PASSES>
 __global__ void __launch_bounds__(FW * 32)
 knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
                 float* __restrict__ out_d, int* __restrict__ out_i, int Nq,
-                int N, int C, int k, int vec) {
+                int N, int C, int k, int vec, int ldk, int col0) {
   extern __shared__ float4 smem[];
   const int C4 = (C + 3) / 4;
   const int st = row_stride4(C4);
@@ -538,8 +588,13 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
   }
   TopK<S> top[FQ];
   float tau[FQ];   // from the first tile on: only distances <= tau enter
+  After<PASSES> lo[FQ];   // a continuation pass's lower bound
 #pragma unroll
-  for (int a = 0; a < FQ; ++a) top[a].init();
+  for (int a = 0; a < FQ; ++a) {
+    top[a].init();
+    if (act[a])
+      lo[a].load(out_d, out_i, (size_t)b * Nq + q0 + w * FQ + a, ldk, col0);
+  }
   const float4* qrow = qs + w * FQ * st;
   const float4* prow = ps + lane * st;
 
@@ -581,8 +636,9 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
         dd[pp][a] = (qn[a] - 2.f * acc[a][pp]) + pn_s[32 * pp + lane];
     if (p0 == 0) {
       // the first tile holds at least k points: the k-th of its lanes'
-      // 2 S smallest distances bounds the k-th distance of the tile, so
-      // only the tile's distances up to it are offered
+      // 2 S smallest (eligible) distances bounds the k-th distance of the
+      // tile, so only the tile's distances up to it are offered (inf
+      // where the tile has fewer than k eligible points)
       float keep[FQ][2 * S];
 #pragma unroll
       for (int a = 0; a < FQ; ++a) {
@@ -590,7 +646,8 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
         for (int s = 0; s < 2 * S; ++s) keep[a][s] = INFINITY;
 #pragma unroll
         for (int pp = 0; pp < FP; ++pp)
-          if (32 * pp + lane < N) keep_smallest(keep[a], dd[pp][a]);
+          if (32 * pp + lane < N && lo[a].ok(dd[pp][a], 32 * pp + lane))
+            keep_smallest(keep[a], dd[pp][a]);
       }
       kth_smallest(keep, k, tau);
     }
@@ -600,6 +657,7 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
 #pragma unroll
       for (int a = 0; a < FQ; ++a)
         if (act[a] && p0 + 32 * pp + lane < N && dd[pp][a] <= tau[a] &&
+            lo[a].ok(dd[pp][a], p0 + 32 * pp + lane) &&
             top[a].wants(dd[pp][a], k))
           bits |= 1u << (pp * FQ + a);
     bits = __reduce_or_sync(FULL, bits);
@@ -609,13 +667,15 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
       for (int a = 0; a < FQ; ++a)
         if ((bits >> (pp * FQ + a)) & 1u)
           top[a].offer(dd[pp][a], p0 + 32 * pp,
-                       p0 + 32 * pp + lane < N && dd[pp][a] <= tau[a], lane,
-                       k, sd, si);
+                       p0 + 32 * pp + lane < N && dd[pp][a] <= tau[a] &&
+                           lo[a].ok(dd[pp][a], p0 + 32 * pp + lane),
+                       lane, k, sd, si);
   }
 #pragma unroll
   for (int a = 0; a < FQ; ++a)
     if (act[a]) {
-      const size_t o = ((size_t)b * Nq + q0 + w * FQ + a) * k;
+      const size_t o =
+          out_at<PASSES>((size_t)b * Nq + q0 + w * FQ + a, k, ldk, col0);
       top[a].store(out_d + o, out_i + o, lane, k);
     }
 }
@@ -624,48 +684,61 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
 // Launch
 // ---------------------------------------------------------------------------
 
-template <int C, int S, int QW>
+template <int C, int S, int QW, bool PASSES>
 int launch_xyz(const float* q, const float* p, float* out_d, int* out_i,
-               int B, int Nq, int N, int k, cudaStream_t stream) {
+               int B, int Nq, int N, int k, int ldk, int col0,
+               cudaStream_t stream) {
   const int per_block = XYZ_WARPS * QW;
   const dim3 grid((Nq + per_block - 1) / per_block, B);
-  knn_xyz_kernel<C, S, QW><<<grid, XYZ_WARPS * 32, 0, stream>>>(
-      q, p, out_d, out_i, Nq, N, k);
+  knn_xyz_kernel<C, S, QW, PASSES><<<grid, XYZ_WARPS * 32, 0, stream>>>(
+      q, p, out_d, out_i, Nq, N, k, ldk, col0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Two queries a warp where that still gives the card 16 warps an SM;
 // else one, so that a small batch of queries spreads over the SMs.
-template <int C, int S>
+template <int C, int S, bool PASSES>
 int launch_xyz_q(const float* q, const float* p, float* out_d, int* out_i,
-                 int B, int Nq, int N, int k, cudaStream_t stream) {
+                 int B, int Nq, int N, int k, int ldk, int col0,
+                 cudaStream_t stream) {
   if ((long long)B * ((Nq + 1) / 2) >= 132LL * 16)
-    return launch_xyz<C, S, 2>(q, p, out_d, out_i, B, Nq, N, k, stream);
-  return launch_xyz<C, S, 1>(q, p, out_d, out_i, B, Nq, N, k, stream);
+    return launch_xyz<C, S, 2, PASSES>(q, p, out_d, out_i, B, Nq, N, k, ldk,
+                                       col0, stream);
+  return launch_xyz<C, S, 1, PASSES>(q, p, out_d, out_i, B, Nq, N, k, ldk,
+                                     col0, stream);
 }
 
-template <int S>
+template <int S, bool PASSES>
 int launch_xyz_c(const float* q, const float* p, float* out_d, int* out_i,
-                 int B, int Nq, int N, int C, int k, cudaStream_t stream) {
+                 int B, int Nq, int N, int C, int k, int ldk, int col0,
+                 cudaStream_t stream) {
   switch (C) {
-    case 1: return launch_xyz_q<1, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
-    case 2: return launch_xyz_q<2, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
-    case 3: return launch_xyz_q<3, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
+    case 1:
+      return launch_xyz_q<1, S, PASSES>(q, p, out_d, out_i, B, Nq, N, k, ldk,
+                                        col0, stream);
+    case 2:
+      return launch_xyz_q<2, S, PASSES>(q, p, out_d, out_i, B, Nq, N, k, ldk,
+                                        col0, stream);
+    case 3:
+      return launch_xyz_q<3, S, PASSES>(q, p, out_d, out_i, B, Nq, N, k, ldk,
+                                        col0, stream);
     default:
-      return launch_xyz_q<4, S>(q, p, out_d, out_i, B, Nq, N, k, stream);
+      return launch_xyz_q<4, S, PASSES>(q, p, out_d, out_i, B, Nq, N, k, ldk,
+                                        col0, stream);
   }
 }
 
-template <typename T, int S>
+template <typename T, int S, bool PASSES>
 int launch_feat(const void* q, const void* p, float* out_d, int* out_i,
-                int B, int Nq, int N, int C, int k, cudaStream_t stream) {
+                int B, int Nq, int N, int C, int k, int ldk, int col0,
+                cudaStream_t stream) {
   const int st = row_stride4((C + 3) / 4);
   const size_t smem = (size_t)(FQB + FTP) * st * sizeof(float4) +
                       (size_t)(FTP + FQB + 2 * FW * 32 * S) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        knn_feat_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        knn_feat_kernel<T, S, PASSES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   constexpr int V = 16 / sizeof(T);
@@ -673,40 +746,57 @@ int launch_feat(const void* q, const void* p, float* out_d, int* out_i,
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(p)) &
        15) == 0;
   const dim3 grid((Nq + FQB - 1) / FQB, B);
-  knn_feat_kernel<T, S><<<grid, FW * 32, smem, stream>>>(
+  knn_feat_kernel<T, S, PASSES><<<grid, FW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(p), out_d, out_i, Nq,
-      N, C, k, vec);
+      N, C, k, vec, ldk, col0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_feat_k(const void* q, const void* p, float* out_d, int* out_i,
-                  int B, int Nq, int N, int C, int k, cudaStream_t stream) {
+                  int B, int Nq, int N, int C, int k, int ldk, int col0,
+                  cudaStream_t stream) {
+  if (ldk > PASS)
+    return launch_feat<T, 2, true>(q, p, out_d, out_i, B, Nq, N, C, k, ldk,
+                                   col0, stream);
   if (k <= 32)
-    return launch_feat<T, 1>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
-  return launch_feat<T, 2>(q, p, out_d, out_i, B, Nq, N, C, k, stream);
+    return launch_feat<T, 1, false>(q, p, out_d, out_i, B, Nq, N, C, k, k, 0,
+                                    stream);
+  return launch_feat<T, 2, false>(q, p, out_d, out_i, B, Nq, N, C, k, k, 0,
+                                  stream);
 }
 
 }  // namespace
 
-// q [B, Nq, C], p [B, N, C] of one dtype (is_bf16 selects bf16, else f32)
-// with 1 <= C <= 256 and 1 <= k <= min(N, 64); out_d [B, Nq, k] f32,
-// out_i [B, Nq, k] i32. All contiguous. f32 with C <= 4 takes
-// knn_xyz_kernel, everything else knn_feat_kernel; each has one instance
-// for k <= 32 and one for k <= 64.
+// One pass of the kNN. q [B, Nq, C], p [B, N, C] of one dtype (is_bf16
+// selects bf16, else f32) with 1 <= C <= 256; out_d [B, Nq, ldk] f32,
+// out_i [B, Nq, ldk] i32, all contiguous, with ldk <= N. The pass writes
+// columns [col0, col0 + k), 1 <= k <= 64: for ldk <= 64 the one pass (k
+// = ldk, col0 = 0); beyond, the passes col0 = 0, 64, 128, ... in turn,
+// each after the one before it, since it reads column col0 - 1. f32 with
+// C <= 4 takes knn_xyz_kernel, everything else knn_feat_kernel; each has
+// one single-pass instance for k <= 32 and one for k <= 64, and one
+// instance for the passes of ldk > 64.
 extern "C" int knn(const void* q, const void* p, float* out_d, int* out_i,
-                   int B, int Nq, int N, int C, int k, int is_bf16,
-                   void* stream) {
+                   int B, int Nq, int N, int C, int k, int ldk, int col0,
+                   int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Nq == 0) return 0;
   if (!is_bf16 && C <= 4) {
     const float* qf = static_cast<const float*>(q);
     const float* pf = static_cast<const float*>(p);
+    if (ldk > PASS)
+      return launch_xyz_c<2, true>(qf, pf, out_d, out_i, B, Nq, N, C, k, ldk,
+                                   col0, s);
     if (k <= 32)
-      return launch_xyz_c<1>(qf, pf, out_d, out_i, B, Nq, N, C, k, s);
-    return launch_xyz_c<2>(qf, pf, out_d, out_i, B, Nq, N, C, k, s);
+      return launch_xyz_c<1, false>(qf, pf, out_d, out_i, B, Nq, N, C, k, k,
+                                    0, s);
+    return launch_xyz_c<2, false>(qf, pf, out_d, out_i, B, Nq, N, C, k, k, 0,
+                                  s);
   }
   if (is_bf16)
-    return launch_feat_k<__nv_bfloat16>(q, p, out_d, out_i, B, Nq, N, C, k, s);
-  return launch_feat_k<float>(q, p, out_d, out_i, B, Nq, N, C, k, s);
+    return launch_feat_k<__nv_bfloat16>(q, p, out_d, out_i, B, Nq, N, C, k,
+                                        ldk, col0, s);
+  return launch_feat_k<float>(q, p, out_d, out_i, B, Nq, N, C, k, ldk, col0,
+                              s);
 }

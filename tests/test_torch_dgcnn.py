@@ -60,21 +60,21 @@ def tree():
     return params
 
 
-def _jax_apply():
-    return JD.make_apply(JD.DGCNNConfig(**SMALL_CFG))
+def _jax_apply(cfg=SMALL_CFG):
+    return JD.make_apply(JD.DGCNNConfig(**cfg))
 
 
-def _model(tree, **kw):
+def _model(tree, cfg=SMALL_CFG, **kw):
     return DGCNN(params=params_from_numpy(tree, "cpu"), device="cpu",
-                 cfg=DGCNNConfig(**SMALL_CFG), **kw)
+                 cfg=DGCNNConfig(**cfg), **kw)
 
 
 def _cloud(B, N, seed=1):
     return np.random.RandomState(seed).randn(B, N, 3).astype(np.float32) * 0.5
 
 
-def _jax_logits_and_grad(tree, x, w):
-    apply = _jax_apply()
+def _jax_logits_and_grad(tree, x, w, cfg=SMALL_CFG):
+    apply = _jax_apply(cfg)
 
     def loss(x):
         lg = apply(tree, x)
@@ -125,6 +125,19 @@ def test_logits_and_input_grad_f32(tree, seed):
     # f32 on both sides: the same neighbour graphs (the JAX kNN takes
     # the matmul distance, the port the elementwise one; no near-tie
     # flips at this seed), sums in other orders: ~1e-6 relative per layer
+    np.testing.assert_allclose(got_lg, want_lg, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-3, atol=1e-5)
+
+
+def test_logits_and_input_grad_f32_at_k65(tree):
+    """``--k`` past 64 (the card's kNN then selects in passes of 64):
+    DGCNN at k = 65 on 128 points against the JAX DGCNN at the same k,
+    as `test_logits_and_input_grad_f32` does at k = 20."""
+    cfg = dict(SMALL_CFG, k=65)
+    x = _cloud(2, 128, seed=1)
+    w = np.random.RandomState(2).randn(2, 10).astype(np.float32)
+    want_lg, want_g = _jax_logits_and_grad(tree, x, w, cfg)
+    got_lg, got_g = _torch_logits_and_grad(_model(tree, cfg), x, w)
     np.testing.assert_allclose(got_lg, want_lg, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got_g, want_g, rtol=1e-3, atol=1e-5)
 

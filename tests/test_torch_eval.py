@@ -339,6 +339,21 @@ def test_unported_settings_raise(argv):
         EV.main(argv + ["--device", "cpu", "--log_dir", ""])
 
 
+def test_main_dgcnn_past_k64_on_cpu():
+    """``--model dgcnn --k 65`` (DGCNN's and the uniform metric's k) runs
+    on the CPU: the kNN's cap of 64 was the card kernel's list length,
+    which its continuation passes now go past (ROADMAP §3 fault 1)."""
+    m = EV.main(["--dataset", "synthetic", "--model", "dgcnn", "--k", "65",
+                 "--batch_size", "2", "--synthetic_size", "2",
+                 "--num_point", "128", "--binary_step", "1", "--num_iter",
+                 "2", "--central_num", "8", "--total_central_num", "16",
+                 "--curv_loss_knn", "8", "--device", "cpu", "--log_dir",
+                 ""])
+    assert m["total"] == 2
+    for key in ("knn_dist", "uniform_dist", "curv_std_dist"):
+        assert np.isfinite(m[key]), key
+
+
 def test_cuda_without_a_card_raises():
     # decided inside the test: every test worker imports this file
     if torch.cuda.is_available():

@@ -191,18 +191,25 @@ def test_knn_duplicate_points_tie_to_lowest_index():
 
 
 def test_knn_refuses_feature_space():
-    """Feature space is ported up to the kernel's 256 staged channels;
-    wider features, and mixed dtypes, are refused on every device; so is
-    k beyond the kernel's longest top-k list (64)."""
-    x = torch.zeros(1, 16, 257)
-    with pytest.raises(ValueError, match="C=257"):
-        K.knn(x, x, 4)
-    z = torch.zeros(1, 100, 3)
-    with pytest.raises(ValueError, match="k=65"):
-        K.knn(z, z, 65)
+    """The CPU path takes any k <= N and any C, as the reference's
+    `knn_idx` does (the caps are the CUDA kernel's, ROADMAP §3 fault 1):
+    k = 65 in coordinates and C = 257 features give JAX `knn_idx`'s
+    indices. Mixed dtypes, and k past N, are refused on every device."""
+    from hitadv_tpu.ops import geometry as JG
+
+    rng = np.random.RandomState(7)
+    z = rng.randn(1, 100, 3).astype(np.float32)
+    f = rng.randn(1, 40, 257).astype(np.float32)
+    for x, k in ((z, 65), (f, 4)):
+        _, got = K.knn(_torch(x), _torch(x), k)
+        want = np.asarray(JG.knn_idx(jnp.asarray(x), jnp.asarray(x), k))
+        assert got.shape == want.shape == (1, x.shape[1], k)
+        np.testing.assert_array_equal(got.numpy(), want)
     y = torch.zeros(1, 16, 8)
     with pytest.raises(TypeError):
         K.knn(y, y.to(torch.bfloat16), 4)
+    with pytest.raises(ValueError, match="k=17"):
+        K.knn(y, y, 17)
 
 
 @pytest.mark.parametrize("C,k", [(64, 20), (13, 7)])
@@ -650,21 +657,24 @@ def test_scatter_add_group_matches_pallas():
     assert (np.abs(got - want) <= 2.0 ** -17 * mass + 1e-6 * mass).all()
 
 
+@pytest.mark.parametrize("k", [64, 65, 128])
 @pytest.mark.parametrize("Nq,N,C", [(128, 512, 3), (100, 130, 13)])
-def test_knn_at_k64_matches_jax(Nq, N, C):
-    """PointConv's second stage groups by 64 neighbours: the plain kNN at
-    k=64 against the JAX package's `knn_idx` (XLA) and `knn_pallas`."""
+def test_knn_at_k64_matches_jax(Nq, N, C, k):
+    """PointConv's second stage groups by 64 neighbours, and `--k` may
+    ask for more (the card then selects in passes of 64): the plain kNN
+    at k = 64, 65 and 128 against the JAX package's `knn_idx` (XLA) and
+    `knn_pallas`."""
     from hitadv_tpu.ops import geometry as JG
 
     rng = np.random.RandomState(20)
     q = rng.randn(2, Nq, C).astype(np.float32)
     p = rng.randn(2, N, C).astype(np.float32)
     p[:, 90] = p[:, 4]                     # a duplicate: an exact tie
-    got_d, got_i = K.knn(_torch(q), _torch(p), 64)
-    assert got_i.shape == (2, Nq, 64)
-    want_i = np.asarray(JG.knn_idx(jnp.asarray(q), jnp.asarray(p), 64))
+    got_d, got_i = K.knn(_torch(q), _torch(p), k)
+    assert got_i.shape == (2, Nq, k)
+    want_i = np.asarray(JG.knn_idx(jnp.asarray(q), jnp.asarray(p), k))
     np.testing.assert_array_equal(got_i.numpy(), want_i)
-    want_d, want_i = PK.knn_pallas(jnp.asarray(q), jnp.asarray(p), 64)
+    want_d, want_i = PK.knn_pallas(jnp.asarray(q), jnp.asarray(p), k)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     # the Pallas kernel's matmul form of the distance against the port's
     # left-to-right elementwise form: f32 rounding of C-term sums
@@ -791,6 +801,170 @@ def test_gaussian_blend_negdt_pair_matches_pallas(B, Cn, N):
         want = np.asarray(want)
         assert np.linalg.norm(got.numpy() - want) <= 1e-5 * np.linalg.norm(
             want)
+
+
+# csrc/gaussian_blend.cu's tile constants: the order of its f64 sums
+_BLEND = {name: int(v) for name, v in re.findall(
+    r"constexpr int (\w+) = (\d+);",
+    (ROOT / "hitadv_torch" / "ops" / "csrc" / "gaussian_blend.cu"
+     ).read_text())}
+
+
+def _in_order(terms: np.ndarray, seq) -> np.ndarray:
+    """``0.0 + t[seq[0]] + t[seq[1]] + ...`` along axis 1 of ``terms``, one
+    add at a time (a sequential cumulative sum)."""
+    if len(seq) == 0:
+        return np.zeros(terms.shape[:1] + terms.shape[2:])
+    return np.cumsum(terms[:, seq], axis=1)[:, -1]
+
+
+def _blend_fwd_order(t: np.ndarray) -> np.ndarray:
+    """Row sums of f64 ``t`` [B, N, Cn, 4] in the forward kernel's order:
+    part h (of FWD_PARTS) of a row adds, chunk of CCH centres by chunk,
+    the chunk's groups of 4 centres h, h + PARTS, ... in ascending order;
+    the parts are added pairwise, ((p0 + p1) + (p2 + p3)) + ..."""
+    B, N, Cn, _ = t.shape
+    parts, cch = _BLEND["FWD_PARTS"], _BLEND["CCH"]
+    acc = []
+    for h in range(parts):
+        seq = []
+        for c0 in range(0, Cn, cch):
+            cc = min(cch, Cn - c0)
+            seq += [c0 + j for j in range(cc) if j // 4 % parts == h]
+        acc.append(_in_order(t.transpose(0, 2, 1, 3), seq))
+    o = 1
+    while o < parts:
+        acc = [acc[h] + acc[h ^ o] for h in range(parts)]
+        o *= 2
+    return acc[0]
+
+
+def _blend_bwd_order(t: np.ndarray) -> np.ndarray:
+    """Column sums of f64 ``t`` [B, N, Cn, 4] in the backward kernel's
+    order: the cluster's tiles (BWD_CLUSTER at most, of about
+    BWD_BLOCK_ROWS rows) each add their row phases' sums (phase p the
+    rows r0 + p, r0 + p + phases, ...) in phase order; the tiles' sums
+    are added in rank order."""
+    B, N, Cn, _ = t.shape
+    tiles = min(_BLEND["BWD_CLUSTER"], -(-N // _BLEND["BWD_BLOCK_ROWS"]))
+    RB = -(-N // tiles)
+    CB = (-(-Cn // 32) * 32 if Cn <= _BLEND["BWD_STAGED_MAX_CN"]
+          else _BLEND["BWD_WIDE_CB"])
+    phases = _BLEND["BWD_THREADS"] // CB
+    total = None
+    for r in range(tiles):
+        r0, r1 = min(N, r * RB), min(N, r * RB + RB)
+        block = None
+        for p in range(phases):
+            s = _in_order(t, list(range(r0 + p, r1, phases)))
+            block = s if block is None else block + s
+        total = block if total is None else total + block
+    return total
+
+
+@pytest.mark.parametrize("B,Cn,N", [(2, 192, 1024), (1, 3100, 300)])
+def test_blend_kernel_order_stays_within_sum_tol(B, Cn, N):
+    """A numpy model of the negdt blend kernels' summation order (a row's
+    interleaved parts added pairwise forward; row phases, then a
+    cluster's tiles, in order backward), read from the source's constants,
+    against the
+    plain versions' f64 sums on the plain versions' f32 terms: within
+    `chip_smoke.SUM_TOL`, and equal in at least 99% of the entries,
+    at HiT-ADV's Cn = 192 and at a Cn past the old cap of 3072 (more
+    than one chunk of centres)."""
+    from chip_smoke import SUM_TOL, within
+
+    rng = np.random.RandomState(25)
+    negdt, delta, pert = (_torch(a) for a in _blend_inputs(rng, B, Cn, N))
+    g_num = _torch(rng.randn(B, N, 3).astype(np.float32))
+    g_deno = _torch(rng.randn(B, N).astype(np.float32))
+    ker = K._blend_ker(negdt, delta)                          # f32
+    kd = ker.double().numpy()
+    pd = pert.double().numpy()
+    t = np.stack([kd * pd[:, None, :, 0], kd * pd[:, None, :, 1],
+                  kd * pd[:, None, :, 2], kd], axis=-1)
+    fwd = torch.from_numpy(_blend_fwd_order(t)).float()
+    num, deno = K.gaussian_blend_negdt_plain(negdt, delta, pert)
+    within(SUM_TOL, "max")((fwd[..., :3], fwd[..., 3]), (num, deno),
+                           "forward order")
+    gker = ((g_num[..., 0:1] * pert[:, None, :, 0]
+             + g_num[..., 1:2] * pert[:, None, :, 1])
+            + g_num[..., 2:3] * pert[:, None, :, 2]) + g_deno[..., None]
+    gd = g_num.double().numpy()
+    t = np.stack([kd * gd[..., 0:1], kd * gd[..., 1:2], kd * gd[..., 2:3],
+                  (gker * ker).double().numpy()
+                  * (-negdt).double().numpy()], axis=-1)
+    sums = torch.from_numpy(_blend_bwd_order(t))             # [B, Cn, 4]
+    dinv = 1.0 / delta
+    bwd = (sums[..., 3].float() * (dinv * dinv * dinv),
+           sums[..., :3].float())
+    want = K.gaussian_blend_negdt_bwd_plain(negdt, delta, pert, g_num,
+                                            g_deno)
+    within(SUM_TOL, "l2")(bwd, want, "backward order")
+    for got, ref in ((fwd[..., :3], num), (fwd[..., 3], deno)) + tuple(
+            zip(bwd, want)):
+        assert (got == ref).float().mean().item() >= 0.99
+
+
+def test_blend_quotient_from_f64_reciprocal_is_ieee_division():
+    """`csrc/gaussian_blend.cu`'s `quot`: the f32 quotient a / b as
+    RN32(RN64(a RN64(1 / b))), one f64 division a divisor. numpy rounds
+    each f64 operation and the f32 cast as the card does, so this checks
+    the scheme itself: bit for bit the IEEE f32 quotient (the plain
+    version's division) over random bit patterns of every exponent,
+    subnormals, zeros, infinities and NaNs, and HiT-ADV's own range."""
+    rng = np.random.RandomState(27)
+    n = 1 << 22
+    a = rng.randint(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    b = rng.randint(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    a, b = a.view(np.float32), b.view(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                        1.17549435e-38, 3.4028235e38, 1.0, -1.0, 3.0],
+                       np.float32)
+    grid_a, grid_b = np.meshgrid(special, special)
+    negdt = -(rng.rand(n) * 3).astype(np.float32)       # the field's range
+    den = (2 * (0.1 + rng.rand(n) * 1.1) ** 2).astype(np.float32)
+    a = np.concatenate([a, grid_a.ravel(), negdt])
+    b = np.concatenate([b, grid_b.ravel(), den])
+    with np.errstate(all="ignore"):
+        want = a / b
+        got = (a.astype(np.float64)
+               * (1.0 / b.astype(np.float64))).astype(np.float32)
+    same = (want.view(np.uint32) == got.view(np.uint32)) | (
+        np.isnan(want) & np.isnan(got))
+    assert same.all(), (a[~same][:4], b[~same][:4])
+
+
+def test_cpu_paths_take_sizes_past_the_card_caps():
+    """The size caps of ROADMAP §3 fault 1 are the CUDA kernels' alone
+    (past them a CUDA call raises `NotImplementedError`): on the CPU, FPS
+    past 8192 points, the three scatters past 49152 rows, the fused blend
+    past 1536 centres and the negdt blend past the old 3072 run."""
+    rng = np.random.RandomState(26)
+    x = _torch(rng.randn(1, 8193, 3).astype(np.float32))
+    out = K.fps(x, 4, torch.tensor([8192], dtype=torch.int32))
+    assert out.shape == (1, 4) and out[0, 0].item() == 8192
+    n = 49153
+    idx = torch.tensor([[0, n - 1, n - 1]], dtype=torch.int32)
+    g = torch.ones(1, 3, 2)
+    want = torch.zeros(1, n, 2)
+    want[0, 0], want[0, n - 1] = 1.0, 2.0
+    assert torch.equal(K.scatter_add_rows(idx, g, n), want)
+    assert torch.equal(K.scatter_add_group(idx[:, :, None],
+                                           g[:, None], n), want)
+    slot = torch.zeros(1, 3, 2, dtype=torch.int32)
+    assert torch.equal(K.graph_max_pool_bwd(idx[..., None], slot, g, n),
+                       want)
+    ori = _torch(rng.randn(1, 40, 3).astype(np.float32))
+    for Cn in (1537, 3073):
+        central = ori[:, rng.randint(0, 40, Cn)].contiguous()
+        delta = _torch((0.1 + rng.rand(1, Cn)).astype(np.float32))
+        pert = _torch(rng.randn(1, Cn, 3).astype(np.float32) * 0.1)
+        num, deno = K.gaussian_blend_fused(central, ori, delta, pert)
+        negdt = -torch.cdist(ori, central)
+        num2, deno2 = K.gaussian_blend_negdt(negdt, delta, pert)
+        assert num.shape == num2.shape == (1, 40, 3)
+        assert bool(torch.isfinite(deno).all() & torch.isfinite(deno2).all())
 
 
 @pytest.mark.parametrize("B,Cn,N", [(2, 12, 200), (1, 192, 512),
