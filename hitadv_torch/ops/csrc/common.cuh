@@ -53,11 +53,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 //      order (16 turns, a block barrier each), and in its turn a warp
 //      writes each group's sources at cursor + rank, the highest peer
 //      advancing the cursor.
-// Scratch: part [B, csr_chunks(M), N] int32. Passes 1 and 3 need N * 4
-// bytes of dynamic shared memory, so N <= 49152 (192 KB of the 227 KB).
+// Scratch: part [B, csr_chunks(M), N] int32. Passes 1 and 3 keep their
+// N counters or cursors in dynamic shared memory (N * 4 bytes) up to
+// CSR_SMEM_MAX_ROWS destinations (192 KB of the 227 KB). Past that the
+// instances with GLOBAL = true keep them in the block's own row of part:
+// the count pass adds with global integer atomics into a part cleared
+// first (cudaMemsetAsync), and the place pass moves the cursors in part,
+// its warps' turns ordered by the same barriers (__syncthreads and
+// __syncwarp order global as well as shared memory among the block's
+// threads). Integer counts come out the same in any order, so both
+// instances build the same CSR; the choice is by N alone (csr_build).
 constexpr int CSR_THREADS = 512;
 constexpr int CSR_CHUNK = 2 * CSR_THREADS;
 constexpr int CSR_SCAN_THREADS = 1024;
+constexpr int CSR_SMEM_MAX_ROWS = 49152;
 
 inline int csr_chunks(int M) {
   return M > 0 ? (M + CSR_CHUNK - 1) / CSR_CHUNK : 1;
@@ -69,25 +78,35 @@ __device__ __forceinline__ int csr_dst(const I* ib, int m, int M, int N) {
   return v >= 0 && v < N ? (int)v : -1;
 }
 
-template <typename I>
+template <typename I, bool GLOBAL>
 __global__ void __launch_bounds__(CSR_THREADS)
 csr_count_kernel(const I* __restrict__ idx, int* __restrict__ part, int M,
                  int N) {
-  extern __shared__ int cnt[];   // [N]
   const int b = blockIdx.y;
   const int t = threadIdx.x;
   const I* ib = idx + (size_t)b * M;
-  for (int n = t; n < N; n += CSR_THREADS) cnt[n] = 0;
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < CSR_CHUNK / CSR_THREADS; ++g) {
-    const int d = csr_dst(ib, blockIdx.x * CSR_CHUNK + g * CSR_THREADS + t, M,
-                          N);
-    if (d >= 0) atomicAdd(&cnt[d], 1);
-  }
-  __syncthreads();
   int* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * N;
-  for (int n = t; n < N; n += CSR_THREADS) pb[n] = cnt[n];
+  if constexpr (GLOBAL) {
+    // part is cleared: count straight into the block's row
+#pragma unroll
+    for (int g = 0; g < CSR_CHUNK / CSR_THREADS; ++g) {
+      const int d = csr_dst(ib, blockIdx.x * CSR_CHUNK + g * CSR_THREADS + t,
+                            M, N);
+      if (d >= 0) atomicAdd(&pb[d], 1);
+    }
+  } else {
+    extern __shared__ int cnt[];   // [N]
+    for (int n = t; n < N; n += CSR_THREADS) cnt[n] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < CSR_CHUNK / CSR_THREADS; ++g) {
+      const int d = csr_dst(ib, blockIdx.x * CSR_CHUNK + g * CSR_THREADS + t,
+                            M, N);
+      if (d >= 0) atomicAdd(&cnt[d], 1);
+    }
+    __syncthreads();
+    for (int n = t; n < N; n += CSR_THREADS) pb[n] = cnt[n];
+  }
 }
 
 __global__ void __launch_bounds__(CSR_SCAN_THREADS)
@@ -139,18 +158,22 @@ csr_scan_kernel(int* __restrict__ part, int* __restrict__ off, int chunks,
   if (t == CSR_SCAN_THREADS - 1) ob[N] = run;
 }
 
-template <typename I>
+template <typename I, bool GLOBAL>
 __global__ void __launch_bounds__(CSR_THREADS)
-csr_place_kernel(const I* __restrict__ idx, const int* __restrict__ part,
+csr_place_kernel(const I* __restrict__ idx, int* __restrict__ part,
                  int* __restrict__ order, int M, int N) {
   constexpr int G = CSR_CHUNK / CSR_THREADS;   // groups of 32 per warp
-  extern __shared__ int cur[];   // [N]: this chunk's cursors
+  extern __shared__ int smem_cur[];   // [N] unless GLOBAL
   const int b = blockIdx.y;
   const int t = threadIdx.x;
   const unsigned lane = t & 31;
   const int w = t >> 5;
-  const int* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * N;
-  for (int n = t; n < N; n += CSR_THREADS) cur[n] = pb[n];
+  int* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * N;
+  // this chunk's cursors: a copy in shared memory, or its row of part
+  // itself (read and moved only by this block)
+  int* cur = GLOBAL ? pb : smem_cur;
+  if constexpr (!GLOBAL)
+    for (int n = t; n < N; n += CSR_THREADS) cur[n] = pb[n];
   const I* ib = idx + (size_t)b * M;
   int m[G], dst[G];
   unsigned peers[G];
@@ -181,27 +204,41 @@ csr_place_kernel(const I* __restrict__ idx, const int* __restrict__ part,
 }
 
 // Launch the three passes; returns a cudaError_t as int. part is
-// [B, csr_chunks(M), N] int32 scratch.
+// [B, csr_chunks(M), N] int32 scratch. N <= CSR_SMEM_MAX_ROWS takes the
+// shared-memory counters, larger N the instances that keep them in part.
 template <typename I>
 int csr_build(const I* idx, int* off, int* order, int* part, int B, int M,
               int N, cudaStream_t stream) {
+  const int chunks = csr_chunks(M);
+  const dim3 grid(chunks, B);
+  if (N > CSR_SMEM_MAX_ROWS) {
+    cudaError_t e = cudaMemsetAsync(
+        part, 0, (size_t)B * chunks * N * sizeof(int), stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    csr_count_kernel<I, true><<<grid, CSR_THREADS, 0, stream>>>(idx, part,
+                                                                M, N);
+    csr_scan_kernel<<<B, CSR_SCAN_THREADS, 0, stream>>>(part, off, chunks,
+                                                        N);
+    csr_place_kernel<I, true><<<grid, CSR_THREADS, 0, stream>>>(
+        idx, part, order, M, N);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = (size_t)N * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        csr_count_kernel<I>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        csr_count_kernel<I, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(csr_place_kernel<I>,
+      e = cudaFuncSetAttribute(csr_place_kernel<I, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int chunks = csr_chunks(M);
-  const dim3 grid(chunks, B);
-  csr_count_kernel<I><<<grid, CSR_THREADS, smem, stream>>>(idx, part, M, N);
+  csr_count_kernel<I, false><<<grid, CSR_THREADS, smem, stream>>>(idx, part,
+                                                                  M, N);
   csr_scan_kernel<<<B, CSR_SCAN_THREADS, 0, stream>>>(part, off, chunks, N);
-  csr_place_kernel<I><<<grid, CSR_THREADS, smem, stream>>>(idx, part, order,
-                                                           M, N);
+  csr_place_kernel<I, false><<<grid, CSR_THREADS, smem, stream>>>(
+      idx, part, order, M, N);
   return static_cast<int>(cudaGetLastError());
 }
 

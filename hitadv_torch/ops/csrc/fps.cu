@@ -44,6 +44,20 @@
 // The number of warps is chosen by N alone (`fps`): 4 up to N = 4096,
 // else 8 (32 points a thread). Four beat one warp a cloud (no barrier,
 // 32 points a lane) and eight at N <= 1024 on the H100 (PERF.md, PR 8).
+//
+// Clouds past the staged instances (N > STAGED_MAX or npoint >
+// STAGED_MAX) take fps_global_kernel: one block of GW warps a cloud
+// reads the cloud from global memory (L2) at every step, three coalesced
+// 4-byte loads a point, and keeps the running minimum distances in the
+// scratch dist [B, N] (read and written by the thread that owns the
+// point, so no barrier guards it). Thread t owns the points t, t + GW *
+// 32, ... in ascending order and keeps the first of its maxima (a strict
+// >); the warp reduction is the one above, and the block's takes the
+// lowest index among the warps that hold the maximum (lane w reads warp
+// w's slot: two more warp reductions), so the result is the lowest index
+// of the maximum. Each chosen index goes straight to `out`, and the
+// chosen point's coordinates are one broadcast load from L2. The order
+// of the distance's operations, and so its bits, are the plain version's.
 
 #include <cuda_runtime.h>
 
@@ -128,6 +142,57 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
   for (int e = tid; e < npoint; e += W * 32) ob[e] = chosen[e];
 }
 
+constexpr int STAGED_MAX = 8192;   // N and npoint of the staged kernels
+constexpr int GW = 32;              // warps of fps_global_kernel (a
+                                    // slot a lane in its reduction)
+
+__global__ void __launch_bounds__(GW * 32)
+fps_global_kernel(const float* __restrict__ xyz, const int* __restrict__ start,
+                  int* __restrict__ out, float* __restrict__ dist, int N,
+                  int npoint) {
+  __shared__ __align__(16) uint2 slot[2][GW];   // per warp: (bits, index)
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const float* xb = xyz + (size_t)b * N * 3;
+  float* db = dist + (size_t)b * N;
+  int* ob = out + (size_t)b * npoint;
+
+  int far = start[b];
+  for (int i = 0;;) {
+    if (tid == 0) ob[i] = far;
+    if (++i == npoint) break;
+    const float cx = xb[(size_t)far * 3], cy = xb[(size_t)far * 3 + 1],
+                cz = xb[(size_t)far * 3 + 2];
+    // the thread's first maximum over its points (none: bits 0, no index)
+    float best = -1.f;
+    int bi = -1;
+    for (int n = tid; n < N; n += GW * 32) {
+      const float dx = xb[(size_t)n * 3] - cx, dy = xb[(size_t)n * 3 + 1] - cy,
+                  dz = xb[(size_t)n * 3 + 2] - cz;
+      const float d = (dx * dx + dy * dy) + dz * dz;
+      const float m = fminf(i == 1 ? 1e10f : db[n], d);
+      db[n] = m;
+      if (m > best) {
+        best = m;
+        bi = n;
+      }
+    }
+    const unsigned key = bi < 0 ? 0u : __float_as_uint(best);
+    const unsigned wmax = __reduce_max_sync(FULL, key);
+    const unsigned widx = __reduce_min_sync(
+        FULL, key == wmax && bi >= 0 ? (unsigned)bi : 0xffffffffu);
+    uint2* sl = slot[i & 1];
+    if (lane == 0) sl[warp] = make_uint2(wmax, widx);
+    __syncthreads();
+    // every warp takes the first maximum over the GW slots, lane w the
+    // slot of warp w: two warp reductions
+    const uint2 v = sl[lane];
+    const unsigned bmax = __reduce_max_sync(FULL, v.x);
+    far = (int)__reduce_min_sync(FULL, v.x == bmax ? v.y : 0xffffffffu);
+  }
+}
+
 template <int W, int PT>
 int launch(const float* xyz, const int* start, int* out, int B, int N,
            int npoint, cudaStream_t stream) {
@@ -145,16 +210,22 @@ int launch(const float* xyz, const int* start, int* out, int B, int N,
 
 }  // namespace
 
-// xyz [B, N, 3] f32, start [B] i32 in [0, N), out [B, npoint] i32; all
-// contiguous; 1 <= N <= 8192 and 1 <= npoint <= 8192 (the cloud's 16-byte
-// records and the indices in shared memory: at most 160 KB). Four warps a
-// cloud up to N = 4096 (PT: the least power of two with 128 * PT >= N),
-// else eight with 32 points a thread.
-extern "C" int fps(const float* xyz, const int* start, int* out, int B, int N,
-                   int npoint, void* stream) {
+// xyz [B, N, 3] f32, start [B] i32 in [0, N), out [B, npoint] i32, dist
+// [B, N] f32 scratch (read only by fps_global_kernel); all contiguous; N,
+// npoint >= 1. Up to STAGED_MAX points and picks (the cloud's 16-byte
+// records and the indices in shared memory: at most 160 KB) the staged
+// kernels: four warps a cloud up to N = 4096 (PT: the least power of two
+// with 128 * PT >= N), else eight with 32 points a thread. Beyond,
+// fps_global_kernel.
+extern "C" int fps(const float* xyz, const int* start, int* out, float* dist,
+                   int B, int N, int npoint, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || N > 8192 || npoint < 1 || npoint > 8192)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || npoint < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (N > STAGED_MAX || npoint > STAGED_MAX) {
+    fps_global_kernel<<<B, GW * 32, 0, s>>>(xyz, start, out, dist, N,
+                                            npoint);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (N > 4096) return launch<8, 32>(xyz, start, out, B, N, npoint, s);
   const int pt = (N + 127) / 128;
   if (pt <= 1) return launch<4, 1>(xyz, start, out, B, N, npoint, s);

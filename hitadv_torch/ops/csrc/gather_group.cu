@@ -155,8 +155,7 @@ extern "C" int gather_group(const void* x, const void* idx, void* out, int B,
 // idx [B, S, ns] (idx_bytes 4 or 8) in [0, N); g [B, ns, S, C] and out
 // [B, N, C] of one dtype (is_bf16 selects bf16, else f32); off [B, N + 1],
 // order [B, S * ns] and part [B, csr_chunks(S * ns), N] int32 scratch. All
-// contiguous. N <= 49152 (the counting sort keeps N counters in shared
-// memory).
+// contiguous; any N (common.cuh's csr_build).
 extern "C" int scatter_add_group(const void* idx, const void* g, void* out,
                                  int* off, int* order, int* part, int B,
                                  int S, int ns, int N, int C, int idx_bytes,

@@ -35,12 +35,17 @@
 //     straddles two rows takes the rest from the next row. Neighbouring
 //     lanes write neighbouring words, 512 contiguous bytes a warp, as
 //     streaming stores (__stcs), which leave L2 to the sources. Offsets
-//     inside a cloud are 32-bit. Only the at most two words a cloud
+//     inside a cloud are 32-bit (below). Only the at most two words a cloud
 //     shares with its neighbours (or the ends of out) go byte by byte.
 //     Against the first version of this kernel (two aligned 16-byte
 //     source loads, a select of 4 of their 8 words, 64-bit addresses,
 //     plain stores) this took about a third off the field gathers
 //     (PERF.md): the word assembly, not the bytes, set its pace.
+// Both kernels take their offsets inside a cloud as a template type O:
+// 32-bit (unsigned, the row from common.cuh's Divider) while a cloud's
+// input and output are each under 2^31 bytes, and 64-bit (unsigned long
+// long, the row from a 64-bit division) for a cloud whose input or
+// output reaches 2^31 bytes (`gather`). Only the offsets' width differs.
 // Indices may be int32 or int64 and must lie in [0, N); the callers
 // produce them from kNN, FPS or argmax.
 
@@ -53,21 +58,41 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr long long OFFSET32_MAX_BYTES = 1LL << 31;   // a cloud, exclusive
+
+// n / d in 64 bits: the divider of the 64-bit instances
+struct Divider64 {
+  unsigned long long d;
+  __device__ __forceinline__ unsigned long long div(
+      unsigned long long n) const {
+    return n / d;
+  }
+};
+
+template <typename O> struct DividerOf { using T = hitadv::Divider; };
+template <> struct DividerOf<unsigned long long> { using T = Divider64; };
+
+inline hitadv::Divider divider(unsigned d, unsigned) {
+  return hitadv::make_divider(d);
+}
+inline Divider64 divider(unsigned long long d, unsigned long long) {
+  return Divider64{d};
+}
 
 // A thread a unit e of a cloud's M units-wide output.
-template <typename U, typename I>
+template <typename U, typename I, typename O>
 __global__ void __launch_bounds__(THREADS)
 gather_units_kernel(const U* __restrict__ x, const I* __restrict__ idx,
-                    U* __restrict__ out, int B, long long N, unsigned M,
-                    unsigned units, hitadv::Divider by_units) {
-  const unsigned total = M * units;
+                    U* __restrict__ out, int B, long long N, O M, O units,
+                    typename DividerOf<O>::T by_units) {
+  const O total = M * units;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const I* ib = idx + (size_t)b * M;
     const U* xb = x + (size_t)b * N * units;
     U* ob = out + (size_t)b * total;
-    for (unsigned e = blockIdx.x * THREADS + threadIdx.x; e < total;
+    for (O e = blockIdx.x * THREADS + threadIdx.x; e < total;
          e += gridDim.x * THREADS) {
-      const unsigned m = by_units.div(e);
+      const O m = by_units.div(e);
       ob[e] = xb[(size_t)ib[m] * units + (e - m * units)];
     }
   }
@@ -77,21 +102,22 @@ gather_units_kernel(const U* __restrict__ x, const I* __restrict__ idx,
 // those at [lo, hi) (inside [p, p + 16)) must be right: the aligned
 // 4-byte words holding a needed byte are loaded, no other, and shifted
 // into place. p may lie below xc (a straddling word's start in row 0):
-// the arithmetic is modulo 2^32, and a word wrapped below xc is never
-// loaded, since hi stays far below 2^32 (a cloud's bytes < 2^31).
-__device__ __forceinline__ uint4 window16(const unsigned char* xc,
-                                          unsigned p, unsigned lo,
-                                          unsigned hi) {
-  const unsigned w0 = p & ~3u;
+// the arithmetic is modulo 2^32 (2^64), and a word wrapped below xc is
+// never loaded, since hi stays far below that (a cloud's bytes < 2^31 in
+// the 32-bit instances).
+template <typename O>
+__device__ __forceinline__ uint4 window16(const unsigned char* xc, O p, O lo,
+                                          O hi) {
+  const O w0 = p & ~(O)3;
   uint32_t t[5];
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
-    const unsigned q = w0 + 4 * k;
+    const O q = w0 + 4 * k;
     t[k] = q + 4 > lo && q < hi
                ? __ldg(reinterpret_cast<const unsigned*>(xc + q))
                : 0u;
   }
-  const unsigned bits = (p & 3) * 8;
+  const unsigned bits = (unsigned)(p & 3) * 8;
   return make_uint4(__funnelshift_r(t[0], t[1], bits),
                     __funnelshift_r(t[1], t[2], bits),
                     __funnelshift_r(t[2], t[3], bits),
@@ -112,13 +138,13 @@ __device__ __forceinline__ uint4 splice(uint4 v, uint4 u, unsigned p) {
 }
 
 // A thread an aligned 16-byte word of a cloud's output run of M R bytes
-// (R > 16; M R and N R < 2^31).
-template <typename I>
+// (R > 16; M R and N R below the range of O).
+template <typename I, typename O>
 __global__ void __launch_bounds__(THREADS)
 gather_words_kernel(const unsigned char* __restrict__ x,
                     const I* __restrict__ idx,
                     unsigned char* __restrict__ out, int B, long long N,
-                    unsigned M, unsigned R, hitadv::Divider by_row) {
+                    O M, O R, typename DividerOf<O>::T by_row) {
   const unsigned long long L = (unsigned long long)M * R;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const I* ib = idx + (size_t)b * M;
@@ -126,24 +152,24 @@ gather_words_kernel(const unsigned char* __restrict__ x,
     const uintptr_t xr = reinterpret_cast<uintptr_t>(x + (size_t)b * N * R);
     const unsigned char* xc =
         reinterpret_cast<const unsigned char*>(xr & ~(uintptr_t)3);
-    const unsigned d = (unsigned)(xr & 3);
+    const O d = (O)(xr & 3);
     const uintptr_t ob = reinterpret_cast<uintptr_t>(out) + b * L;
     const uintptr_t oe = ob + L;
     const uintptr_t first = ob >> 4;
-    const unsigned words = (unsigned)(((oe - 1) >> 4) - first + 1);
-    for (unsigned i = blockIdx.x * THREADS + threadIdx.x; i < words;
+    const O words = (O)(((oe - 1) >> 4) - first + 1);
+    for (O i = blockIdx.x * THREADS + threadIdx.x; i < words;
          i += gridDim.x * THREADS) {
       const uintptr_t g = (first + i) << 4;
       if (g >= ob && g + 16 <= oe) {
-        const unsigned o = (unsigned)(g - ob);
-        const unsigned m = by_row.div(o);
-        const unsigned off = o - m * R;
-        const unsigned p = R - off;               // row m's bytes from g on
-        const unsigned a = d + (unsigned)ib[m] * R + off;
-        uint4 v = window16(xc, a, a, a + min(p, 16u));
+        const O o = (O)(g - ob);
+        const O m = by_row.div(o);
+        const O off = o - m * R;
+        const O p = R - off;                      // row m's bytes from g on
+        const O a = d + (O)ib[m] * R + off;
+        uint4 v = window16<O>(xc, a, a, a + (p < 16 ? p : (O)16));
         if (p < 16) {                             // the rest: row m + 1
-          const unsigned c = d + (unsigned)ib[m + 1] * R;
-          v = splice(v, window16(xc, c - p, c, c + 16 - p), p);
+          const O c = d + (O)ib[m + 1] * R;
+          v = splice(v, window16<O>(xc, c - p, c, c + 16 - p), (unsigned)p);
         }
         __stcs(reinterpret_cast<uint4*>(g), v);
       } else {
@@ -151,27 +177,27 @@ gather_words_kernel(const unsigned char* __restrict__ x,
         // only this cloud's bytes, one by one
         const uintptr_t lo = g > ob ? g : ob, hi = g + 16 < oe ? g + 16 : oe;
         for (uintptr_t e = lo; e < hi; ++e) {
-          const unsigned o = (unsigned)(e - ob);
-          const unsigned m = by_row.div(o);
+          const O o = (O)(e - ob);
+          const O m = by_row.div(o);
           *reinterpret_cast<unsigned char*>(e) =
-              xc[d + (unsigned)ib[m] * R + (o - m * R)];
+              xc[d + (O)ib[m] * R + (o - m * R)];
         }
       }
     }
   }
 }
 
-template <typename U, typename I>
+template <typename U, typename I, typename O>
 void units_launch(const void* x, const void* idx, void* out, long long B,
                   long long N, long long M, int units, cudaStream_t s) {
-  gather_units_kernel<U, I><<<hitadv::grid_2d(M * units, THREADS, B),
-                              THREADS, 0, s>>>(
+  gather_units_kernel<U, I, O><<<hitadv::grid_2d(M * units, THREADS, B),
+                                 THREADS, 0, s>>>(
       static_cast<const U*>(x), static_cast<const I*>(idx),
-      static_cast<U*>(out), (int)B, N, (unsigned)M, (unsigned)units,
-      hitadv::make_divider((unsigned)units));
+      static_cast<U*>(out), (int)B, N, (O)M, (O)units,
+      divider((O)units, (O)0));
 }
 
-template <typename I>
+template <typename I, typename O>
 int gather(const void* x, const void* idx, void* out, long long B,
            long long N, long long M, long long R, cudaStream_t s) {
   if (B * M == 0 || R == 0) return static_cast<int>(cudaGetLastError());
@@ -182,36 +208,48 @@ int gather(const void* x, const void* idx, void* out, long long B,
   while (unit > 1 && (R % unit != 0 || align % unit != 0)) unit /= 2;
   if (R > 16 && unit < 16) {
     const long long words = (M * R + 30) / 16;   // at most, a cloud
-    gather_words_kernel<I><<<hitadv::grid_2d(words, THREADS, B), THREADS,
-                             0, s>>>(
+    gather_words_kernel<I, O><<<hitadv::grid_2d(words, THREADS, B), THREADS,
+                                0, s>>>(
         static_cast<const unsigned char*>(x), static_cast<const I*>(idx),
-        static_cast<unsigned char*>(out), (int)B, N, (unsigned)M,
-        (unsigned)R, hitadv::make_divider((unsigned)R));
+        static_cast<unsigned char*>(out), (int)B, N, (O)M, (O)R,
+        divider((O)R, (O)0));
     return static_cast<int>(cudaGetLastError());
   }
   const int units = (int)(R / unit);
   switch (unit) {
-    case 16: units_launch<uint4, I>(x, idx, out, B, N, M, units, s); break;
-    case 8: units_launch<uint2, I>(x, idx, out, B, N, M, units, s); break;
-    case 4: units_launch<uint32_t, I>(x, idx, out, B, N, M, units, s); break;
-    case 2: units_launch<uint16_t, I>(x, idx, out, B, N, M, units, s); break;
-    default: units_launch<uint8_t, I>(x, idx, out, B, N, M, units, s); break;
+    case 16: units_launch<uint4, I, O>(x, idx, out, B, N, M, units, s); break;
+    case 8: units_launch<uint2, I, O>(x, idx, out, B, N, M, units, s); break;
+    case 4:
+      units_launch<uint32_t, I, O>(x, idx, out, B, N, M, units, s);
+      break;
+    case 2:
+      units_launch<uint16_t, I, O>(x, idx, out, B, N, M, units, s);
+      break;
+    default:
+      units_launch<uint8_t, I, O>(x, idx, out, B, N, M, units, s);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename I>
+int gather_any(const void* x, const void* idx, void* out, long long B,
+               long long N, long long M, long long R, cudaStream_t s) {
+  if (N * R >= OFFSET32_MAX_BYTES || M * R >= OFFSET32_MAX_BYTES)
+    return gather<I, unsigned long long>(x, idx, out, B, N, M, R, s);
+  return gather<I, unsigned>(x, idx, out, B, N, M, R, s);
 }
 
 }  // namespace
 
 // x [B, N, row_bytes] raw bytes, idx [B, M] (idx_bytes 4 or 8),
-// out [B, M, row_bytes]. All contiguous; N row_bytes and M row_bytes
-// below 2^31.
+// out [B, M, row_bytes]. All contiguous. A cloud whose input or output
+// reaches 2^31 bytes takes the 64-bit-offset instances.
 extern "C" int gather_rows(const void* x, const void* idx, void* out,
                            long long B, long long N, long long M,
                            long long row_bytes, int idx_bytes, void* stream) {
-  if (N * row_bytes >= (1LL << 31) || M * row_bytes >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (idx_bytes == 8)
-    return gather<long long>(x, idx, out, B, N, M, row_bytes, s);
-  return gather<int>(x, idx, out, B, N, M, row_bytes, s);
+    return gather_any<long long>(x, idx, out, B, N, M, row_bytes, s);
+  return gather_any<int>(x, idx, out, B, N, M, row_bytes, s);
 }

@@ -412,7 +412,7 @@ extern "C" int graph_max_pool_fwd(const void* y, const void* idx, void* mx,
 // idx [B, N, K] in [0, NP), slot [B, N, C] int32, g [B, N, C] and out
 // [B, NP, C] of one dtype; off [B, NP + 1], order [B, N K] and part
 // [B, csr_chunks(N K), NP] int32 scratch, slot8 [B, N, C] uint8 scratch.
-// All contiguous. NP <= 49152.
+// All contiguous; any NP (common.cuh's csr_build).
 extern "C" int graph_max_pool_bwd(const void* idx, const int* slot,
                                   const void* g, void* out, int* off,
                                   int* order, int* part, uint8_t* slot8,

@@ -1,5 +1,5 @@
-// Exact k-nearest neighbours (any C up to 256, f32 or bf16 inputs, any
-// k <= N in passes of up to 64), ascending by squared distance, ties to
+// Exact k-nearest neighbours (any C, f32 or bf16 inputs, any k <= N in
+// passes of up to 64), ascending by squared distance, ties to
 // the lowest point index:
 // the HiT-ADV prep's, CW-UKNN's and the evaluation's coordinate kNN,
 // PCT's and PointConv's grouping, and DGCNN's dynamic graph in coordinate
@@ -89,6 +89,16 @@
 // stable sort gives for any k <= N. The bound is compiled in only where
 // it is needed (the template flag PASSES): the k <= 64 kernels are the
 // single-pass ones, unchanged. Each pass is one launch.
+//
+// C > FEAT_STAGED_MAX_C (the template flag CH): a query's channels no
+// longer fit the staged rows, so the feature stage runs the channels in
+// chunks of FEAT_CHUNK_C (the rows of a chunk staged as above). The
+// queries' norms are summed first, chunk by chunk; then for each tile of
+// points every chunk stages its slice of the block's queries and of the
+// tile's points, and the cross terms and the points' norms carry on from
+// chunk to chunk, so every sum is still taken left to right over c and
+// the distances keep their bits. The C <= FEAT_STAGED_MAX_C kernels are
+// the instances without the chunk loop, unchanged.
 
 #include <climits>
 #include <cmath>
@@ -477,9 +487,11 @@ knn_xyz_kernel(const float* __restrict__ q, const float* __restrict__ p,
 }
 
 // ---------------------------------------------------------------------------
-// Features (any C <= 256, f32 or bf16): register-tiled cross term
+// Features (any C, f32 or bf16): register-tiled cross term
 // ---------------------------------------------------------------------------
 
+constexpr int FEAT_STAGED_MAX_C = 256;   // channels staged whole
+constexpr int FEAT_CHUNK_C = 256;        // channels a chunk beyond that
 constexpr int FW = 8;              // warps per block
 constexpr int FQ = 4;              // queries a warp
 constexpr int FP = 4;              // points a lane per tile
@@ -491,13 +503,14 @@ constexpr int FTP = 32 * FP;       // points per tile
 // merge scratch, sd [FW][64] f32 and si [FW][64] i32.
 __host__ __device__ inline int row_stride4(int C4) { return C4 | 1; }
 
-// Stage rows [r0, r0 + rows) of x [*, C] into dst [rows][st] as f32,
-// zero-padded to 4 st channels and beyond `valid` rows. 16-byte loads
-// where a row is whole 16-byte words and the base is aligned.
+// Stage C channels of rows [0, rows) of x (rows ld elements apart) into
+// dst [rows][st] as f32, zero-padded to 4 st channels and beyond `valid`
+// rows. 16-byte loads where a row is whole 16-byte words and the base is
+// aligned.
 template <typename T>
 __device__ __forceinline__ void stage(float4* dst, const T* __restrict__ x,
-                                      int rows, int valid, int C, int st,
-                                      bool vec) {
+                                      int rows, int valid, int ld, int C,
+                                      int st, bool vec) {
   float* df = reinterpret_cast<float*>(dst);
   constexpr int V = 16 / sizeof(T);          // elements per 16 bytes
   const int t = threadIdx.x;
@@ -508,7 +521,7 @@ __device__ __forceinline__ void stage(float4* dst, const T* __restrict__ x,
       float v[V];
       if (r < valid) {
         const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-            x + (size_t)r * C) + w);
+            x + (size_t)r * ld) + w);
         const T* h = reinterpret_cast<const T*>(&u);
 #pragma unroll
         for (int s = 0; s < V; ++s) v[s] = to_f32(h[s]);
@@ -530,7 +543,7 @@ __device__ __forceinline__ void stage(float4* dst, const T* __restrict__ x,
   } else {
     for (int e = t; e < rows * 4 * st; e += FW * 32) {
       const int r = e / (4 * st), c = e - r * 4 * st;
-      df[e] = (c < C && r < valid) ? to_f32(x[(size_t)r * C + c]) : 0.f;
+      df[e] = (c < C && r < valid) ? to_f32(x[(size_t)r * ld + c]) : 0.f;
     }
   }
 }
@@ -552,13 +565,27 @@ __device__ __forceinline__ float row_norm(const float4* row, int C4) {
   return s;
 }
 
-template <typename T, int S, bool PASSES>
+// s carried on over the channels of a later chunk, left to right
+__device__ __forceinline__ float row_norm_on(const float4* row, int C4,
+                                             float s) {
+  for (int c4 = 0; c4 < C4; ++c4) {
+    const float4 v = row[c4];
+    s = s + v.x * v.x;
+    s = s + v.y * v.y;
+    s = s + v.z * v.z;
+    s = s + v.w * v.w;
+  }
+  return s;
+}
+
+template <typename T, int S, bool PASSES, bool CH>
 __global__ void __launch_bounds__(FW * 32)
 knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
                 float* __restrict__ out_d, int* __restrict__ out_i, int Nq,
                 int N, int C, int k, int vec, int ldk, int col0) {
   extern __shared__ float4 smem[];
-  const int C4 = (C + 3) / 4;
+  // the staged channels: all C, or a chunk of FEAT_CHUNK_C
+  const int C4 = CH ? FEAT_CHUNK_C / 4 : (C + 3) / 4;
   const int st = row_stride4(C4);
   float4* qs = smem;
   float4* ps = qs + FQB * st;
@@ -574,10 +601,24 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
   const int q0 = blockIdx.x * FQB;
   const T* pb = p + (size_t)b * N * C;
 
-  stage(qs, q + ((size_t)b * Nq + q0) * C, FQB, min(FQB, Nq - q0), C, st,
-        vec);
-  __syncthreads();
-  if (t < FQB) qn_s[t] = row_norm(qs + t * st, C4);
+  const T* qb = q + ((size_t)b * Nq + q0) * C;
+  if constexpr (CH) {
+    float s = 0.f;
+    for (int c0 = 0; c0 < C; c0 += FEAT_CHUNK_C) {
+      const int cc = min(FEAT_CHUNK_C, C - c0);
+      __syncthreads();   // the previous chunk is no longer read
+      stage(qs, qb + c0, FQB, min(FQB, Nq - q0), C, cc, st, vec);
+      __syncthreads();
+      if (t < FQB)
+        s = c0 == 0 ? row_norm(qs + t * st, (cc + 3) / 4)
+                    : row_norm_on(qs + t * st, (cc + 3) / 4, s);
+    }
+    if (t < FQB) qn_s[t] = s;
+  } else {
+    stage(qs, qb, FQB, min(FQB, Nq - q0), C, C, st, vec);
+    __syncthreads();
+    if (t < FQB) qn_s[t] = row_norm(qs + t * st, C4);
+  }
   __syncthreads();
   float qn[FQ];
   bool act[FQ];
@@ -599,33 +640,54 @@ knn_feat_kernel(const T* __restrict__ q, const T* __restrict__ p,
   const float4* prow = ps + lane * st;
 
   for (int p0 = 0; p0 < N; p0 += FTP) {
-    __syncthreads();   // the previous tile is no longer read
-    stage(ps, pb + (size_t)p0 * C, FTP, min(FTP, N - p0), C, st, vec);
-    __syncthreads();
-    if (t < FTP) pn_s[t] = row_norm(ps + t * st, C4);
-
     float acc[FQ][FP];
 #pragma unroll
     for (int a = 0; a < FQ; ++a)
 #pragma unroll
       for (int pp = 0; pp < FP; ++pp) acc[a][pp] = 0.f;
-    for (int c4 = 0; c4 < C4; ++c4) {
-      float4 qa[FQ], pv[FP];
+    // the cross terms over staged channels [0, 4 c4n) of the rows in qs
+    // and ps, carried on in acc
+    auto cross = [&](int c4n) {
+      for (int c4 = 0; c4 < c4n; ++c4) {
+        float4 qa[FQ], pv[FP];
 #pragma unroll
-      for (int a = 0; a < FQ; ++a) qa[a] = qrow[a * st + c4];
+        for (int a = 0; a < FQ; ++a) qa[a] = qrow[a * st + c4];
 #pragma unroll
-      for (int pp = 0; pp < FP; ++pp) pv[pp] = prow[pp * 32 * st + c4];
+        for (int pp = 0; pp < FP; ++pp) pv[pp] = prow[pp * 32 * st + c4];
 #pragma unroll
-      for (int a = 0; a < FQ; ++a)
+        for (int a = 0; a < FQ; ++a)
 #pragma unroll
-        for (int pp = 0; pp < FP; ++pp) {
-          float s = acc[a][pp];
-          s = s + qa[a].x * pv[pp].x;
-          s = s + qa[a].y * pv[pp].y;
-          s = s + qa[a].z * pv[pp].z;
-          s = s + qa[a].w * pv[pp].w;
-          acc[a][pp] = s;
-        }
+          for (int pp = 0; pp < FP; ++pp) {
+            float s = acc[a][pp];
+            s = s + qa[a].x * pv[pp].x;
+            s = s + qa[a].y * pv[pp].y;
+            s = s + qa[a].z * pv[pp].z;
+            s = s + qa[a].w * pv[pp].w;
+            acc[a][pp] = s;
+          }
+      }
+    };
+    if constexpr (CH) {
+      float s = 0.f;
+      for (int c0 = 0; c0 < C; c0 += FEAT_CHUNK_C) {
+        const int cc = min(FEAT_CHUNK_C, C - c0);
+        __syncthreads();   // the previous chunk or tile is no longer read
+        stage(qs, qb + c0, FQB, min(FQB, Nq - q0), C, cc, st, vec);
+        stage(ps, pb + (size_t)p0 * C + c0, FTP, min(FTP, N - p0), C, cc,
+              st, vec);
+        __syncthreads();
+        if (t < FTP)
+          s = c0 == 0 ? row_norm(ps + t * st, (cc + 3) / 4)
+                      : row_norm_on(ps + t * st, (cc + 3) / 4, s);
+        cross((cc + 3) / 4);
+      }
+      if (t < FTP) pn_s[t] = s;
+    } else {
+      __syncthreads();   // the previous tile is no longer read
+      stage(ps, pb + (size_t)p0 * C, FTP, min(FTP, N - p0), C, C, st, vec);
+      __syncthreads();
+      if (t < FTP) pn_s[t] = row_norm(ps + t * st, C4);
+      cross(C4);
     }
     __syncthreads();   // the tile's norms are written
     float dd[FP][FQ];
@@ -728,16 +790,16 @@ int launch_xyz_c(const float* q, const float* p, float* out_d, int* out_i,
   }
 }
 
-template <typename T, int S, bool PASSES>
-int launch_feat(const void* q, const void* p, float* out_d, int* out_i,
-                int B, int Nq, int N, int C, int k, int ldk, int col0,
-                cudaStream_t stream) {
-  const int st = row_stride4((C + 3) / 4);
+template <typename T, int S, bool PASSES, bool CH>
+int launch_feat_ch(const void* q, const void* p, float* out_d, int* out_i,
+                   int B, int Nq, int N, int C, int k, int ldk, int col0,
+                   cudaStream_t stream) {
+  const int st = row_stride4(CH ? FEAT_CHUNK_C / 4 : (C + 3) / 4);
   const size_t smem = (size_t)(FQB + FTP) * st * sizeof(float4) +
                       (size_t)(FTP + FQB + 2 * FW * 32 * S) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        knn_feat_kernel<T, S, PASSES>,
+        knn_feat_kernel<T, S, PASSES, CH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -746,10 +808,22 @@ int launch_feat(const void* q, const void* p, float* out_d, int* out_i,
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(p)) &
        15) == 0;
   const dim3 grid((Nq + FQB - 1) / FQB, B);
-  knn_feat_kernel<T, S, PASSES><<<grid, FW * 32, smem, stream>>>(
+  knn_feat_kernel<T, S, PASSES, CH><<<grid, FW * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(p), out_d, out_i, Nq,
       N, C, k, vec, ldk, col0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The channels staged whole up to FEAT_STAGED_MAX_C, else in chunks.
+template <typename T, int S, bool PASSES>
+int launch_feat(const void* q, const void* p, float* out_d, int* out_i,
+                int B, int Nq, int N, int C, int k, int ldk, int col0,
+                cudaStream_t stream) {
+  if (C > FEAT_STAGED_MAX_C)
+    return launch_feat_ch<T, S, PASSES, true>(q, p, out_d, out_i, B, Nq, N,
+                                              C, k, ldk, col0, stream);
+  return launch_feat_ch<T, S, PASSES, false>(q, p, out_d, out_i, B, Nq, N, C,
+                                             k, ldk, col0, stream);
 }
 
 template <typename T>
@@ -769,14 +843,15 @@ int launch_feat_k(const void* q, const void* p, float* out_d, int* out_i,
 }  // namespace
 
 // One pass of the kNN. q [B, Nq, C], p [B, N, C] of one dtype (is_bf16
-// selects bf16, else f32) with 1 <= C <= 256; out_d [B, Nq, ldk] f32,
+// selects bf16, else f32) with C >= 1; out_d [B, Nq, ldk] f32,
 // out_i [B, Nq, ldk] i32, all contiguous, with ldk <= N. The pass writes
 // columns [col0, col0 + k), 1 <= k <= 64: for ldk <= 64 the one pass (k
 // = ldk, col0 = 0); beyond, the passes col0 = 0, 64, 128, ... in turn,
 // each after the one before it, since it reads column col0 - 1. f32 with
 // C <= 4 takes knn_xyz_kernel, everything else knn_feat_kernel; each has
 // one single-pass instance for k <= 32 and one for k <= 64, and one
-// instance for the passes of ldk > 64.
+// instance for the passes of ldk > 64; knn_feat_kernel's each with its
+// channels staged whole (C <= FEAT_STAGED_MAX_C) or in chunks.
 extern "C" int knn(const void* q, const void* p, float* out_d, int* out_i,
                    int B, int Nq, int N, int C, int k, int ldk, int col0,
                    int is_bf16, void* stream) {

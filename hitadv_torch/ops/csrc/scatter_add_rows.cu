@@ -69,8 +69,9 @@ int run(const void* idx, const void* g, void* out, int* off, int* order,
 
 // idx [B, M] (idx_bytes 4 or 8) in [0, N); g [B, M, C] and out [B, N, C]
 // of one dtype (is_bf16 selects bf16, else f32); off [B, N + 1], order
-// [B, M] and part [B, csr_chunks(M), N] int32 scratch. All contiguous.
-// N <= 49152 (the counting sort keeps N counters in shared memory).
+// [B, M] and part [B, csr_chunks(M), N] int32 scratch. All contiguous;
+// any N (the counting sort's counters in shared memory up to
+// CSR_SMEM_MAX_ROWS, in part beyond).
 extern "C" int scatter_add_rows(const void* idx, const void* g, void* out,
                                 int* off, int* order, int* part, int B,
                                 int M, int N, int C, int idx_bytes,

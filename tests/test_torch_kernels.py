@@ -592,11 +592,22 @@ def test_chip_smoke_kde_bound_counts_each_pair_once():
     assert ms == pytest.approx(3 * pairs / S.PEAK_SFU * 1e3)
 
 
-@pytest.mark.parametrize("N,S,ns,radius", [(130, 40, 8, 1.0),
-                                            (100, 30, 16, 0.9)])
-def test_ball_query_matches_pallas(N, S, ns, radius):
+def _disk_cases():
+    """The evaluation's five uniformity disks on clouds of 1024 points:
+    (N, S, ns, radius, scale) with S the 51 FPS centres and ns, r from
+    `uniform_disks(1024)`; the cloud shrunk so that the disks hold full,
+    short and empty balls alike."""
+    from hitadv_torch.losses.geoa3 import uniform_disks
+
+    return [(1024, 51, ns, r, 0.3) for _, ns, r, _ in uniform_disks(1024)]
+
+
+@pytest.mark.parametrize("N,S,ns,radius,scale",
+                         [(130, 40, 8, 1.0, 1.0), (100, 30, 16, 0.9, 1.0)]
+                         + _disk_cases())
+def test_ball_query_matches_pallas(N, S, ns, radius, scale):
     rng = np.random.RandomState(17)
-    xyz = rng.randn(2, N, 3).astype(np.float32)
+    xyz = (rng.randn(2, N, 3) * scale).astype(np.float32)
     centres = xyz[:, rng.choice(N, S, replace=False)].copy()
     centres[:, -3:] += 10.0                # far from every point: empty
     want = np.asarray(PK.ball_query_pallas(radius, ns, jnp.asarray(xyz),
@@ -936,10 +947,11 @@ def test_blend_quotient_from_f64_reciprocal_is_ieee_division():
 
 
 def test_cpu_paths_take_sizes_past_the_card_caps():
-    """The size caps of ROADMAP §3 fault 1 are the CUDA kernels' alone
-    (past them a CUDA call raises `NotImplementedError`): on the CPU, FPS
-    past 8192 points, the three scatters past 49152 rows, the fused blend
-    past 1536 centres and the negdt blend past the old 3072 run."""
+    """The sizes past the CUDA kernels' former caps (ROADMAP §3 fault 1,
+    closed: the card's instances for them are held against these plain
+    versions by tests/test_torch_cuda.py) run on the CPU too: FPS past
+    8192 points, the three scatters past 49152 rows, the fused blend past
+    1536 centres and the negdt blend past the old 3072."""
     rng = np.random.RandomState(26)
     x = _torch(rng.randn(1, 8193, 3).astype(np.float32))
     out = K.fps(x, 4, torch.tensor([8192], dtype=torch.int32))
@@ -965,6 +977,158 @@ def test_cpu_paths_take_sizes_past_the_card_caps():
         num2, deno2 = K.gaussian_blend_negdt(negdt, delta, pert)
         assert num.shape == num2.shape == (1, 40, 3)
         assert bool(torch.isfinite(deno).all() & torch.isfinite(deno2).all())
+
+
+# csrc/gaussian_blend_fused.cu's constants: its backward's layout and the
+# order of its f64 sums
+_FUSED = {name: int(v) for name, v in re.findall(
+    r"constexpr int (\w+) = (\d+);",
+    (ROOT / "hitadv_torch" / "ops" / "csrc" / "gaussian_blend_fused.cu"
+     ).read_text())}
+
+
+def test_fps_scratch_threshold_mirrors_the_source():
+    """`kernels.fps` allocates the global-memory kernel's distance scratch
+    past the staged kernels' size, as `csrc/fps.cu` chooses it."""
+    src = (ROOT / "hitadv_torch" / "ops" / "csrc" / "fps.cu").read_text()
+    staged = int(re.search(r"constexpr int STAGED_MAX = (\d+);",
+                           src).group(1))
+    assert K._FPS_STAGED_MAX == staged
+
+
+def _fused_bwd_layout(B: int, N: int, Cn: int):
+    """(G, splits, tiles) as the fused backward's `bwd_layout` chooses
+    them from the shape and the source's constants: G point groups of 32
+    a warp, the centres in ``splits`` ranges of whole groups of 32, and
+    ``tiles`` tiles of 32 BWD_WARPS G points a cloud."""
+    W, target = _FUSED["BWD_WARPS"], _FUSED["BWD_TARGET_BLOCKS"]
+    blocks1 = B * -(-N // (32 * W))
+    groups = -(-Cn // 32)
+    if blocks1 >= target:
+        G = min(_FUSED["BWD_MAX_GROUPS"], blocks1 // target)
+        splits = 1
+    else:
+        G = 1
+        splits = min(groups, -(-target // blocks1))
+    per_split = -(-groups // splits)
+    return G, -(-groups // per_split), -(-N // (32 * W * G))
+
+
+def test_fused_bwd_layout_from_the_source_constants():
+    """The model of the fused backward's layout gives the layouts the
+    source's header names: six centre ranges at the flagship shape, two
+    point groups a warp at `chip_smoke.FUSED_LARGE`, whose f64 sums
+    (part [B, tiles, Cn, 7], 176 MB) stay under 1/8 of its 3.2 GB
+    field. tests/test_torch_cuda.py holds the library's scratch size to
+    the same layouts on the card."""
+    from chip_smoke import FUSED_LARGE
+
+    assert _fused_bwd_layout(64, 1024, 192) == (1, 6, 8)
+    B, N, Cn = FUSED_LARGE
+    G, splits, tiles = _fused_bwd_layout(B, N, Cn)
+    assert (G, splits, tiles) == (2, 1, 1024)
+    assert B * tiles * Cn * 7 * 8 <= 4 * B * N * Cn / 8
+
+
+def _fused_bwd_order(tc: np.ndarray, N: int, Cn: int, G: int,
+                     splits: int):
+    """The fused backward kernel's sums of the f64 terms ``tc`` [B, N, Cn,
+    7] (w dx, w dy, w dz, gkk d, k g_x, k g_y, k g_z), in its order:
+    -> (the points' g_ori sums [B, N, 3], the centres' sums [B, Cn, 7]).
+
+    A point's sums (the first three terms): each centre range in order,
+    each from 0; in a range the chunks of BWD_CCH centres and their groups
+    of 32 in order, and in a group, for the point's lane l = n mod 32,
+    the centres l, l - 1, ... (mod 32); the ranges' sums added in order.
+    A centre's sums: each tile of 32 BWD_WARPS G points in order; in a
+    tile each warp's from 0 (its G groups of 32 points in order, in a
+    group the points l, l + 1, ... (mod 32) for the centre's lane l = j
+    mod 32), the warps' added in order, from 0."""
+    W, cch = _FUSED["BWD_WARPS"], _FUSED["BWD_CCH"]
+    groups = -(-Cn // 32)
+    gps = -(-groups // splits)
+    B = tc.shape[0]
+    gori = np.zeros((B, N, 3))
+    for sp in range(splits):
+        jb, je = sp * gps * 32, min(Cn, (sp + 1) * gps * 32)
+        part = np.zeros((B, N, 3))
+        for l in range(32):
+            seq = []
+            for c0 in range(jb, je, cch):
+                cn = min(cch, je - c0)
+                for g0 in range(0, cn, 32):
+                    seq += [c0 + g0 + (l - i) % 32 for i in range(32)
+                            if g0 + (l - i) % 32 < cn]
+            pts = np.arange(l, N, 32)
+            if len(pts) and seq:
+                part[:, pts] = np.cumsum(tc[:, pts][:, :, seq, :3],
+                                         axis=2)[:, :, -1]
+        gori = part if splits == 1 else gori + part
+    tp = 32 * W * G
+    cent = np.zeros((B, Cn, 7))
+    for t0 in range(0, N, tp):
+        block = np.zeros((B, Cn, 7))
+        for w in range(W):
+            warp = np.zeros((B, Cn, 7))
+            for l in range(32):
+                seq = [t0 + (w * G + g) * 32 + (l + i) % 32
+                       for g in range(G) for i in range(32)]
+                seq = [n for n in seq if n < N]
+                js = np.arange(l, Cn, 32)
+                if seq and len(js):
+                    warp[:, js] = np.cumsum(tc[:, seq][:, :, js], axis=1)[
+                        :, -1]
+            block = block + warp
+        cent = cent + block
+    return gori, cent
+
+
+@pytest.mark.parametrize("B,Cn,N,layout_of", [
+    (2, 192, 1024, (64, 1024, 192)), (2, 192, 2048, (16, 262144, 192)),
+    (1, 1600, 300, (1, 300, 1600))])
+def test_fused_bwd_kernel_order_stays_within_sum_tol(B, Cn, N, layout_of):
+    """A numpy model of the fused backward kernel's summation order
+    (`_fused_bwd_order`, read from the source's constants, at the layout
+    the card takes for ``layout_of``: the flagship's six centre ranges,
+    `FUSED_LARGE`'s two point groups a warp, a Cn past the old cap of
+    1536 in 50 ranges) against the plain version's f64 sums of
+    the same f32 terms: within `chip_smoke.SUM_TOL`, and equal in at
+    least 99% of the entries."""
+    from chip_smoke import SUM_TOL, within
+
+    rng = np.random.RandomState(28)
+    ori = (rng.randn(B, N, 3) * 0.5).astype(np.float32)
+    sel = rng.randint(0, N, size=(B, Cn))
+    central = np.stack([ori[b, sel[b]] for b in range(B)])
+    delta = (0.1 + rng.rand(B, Cn) * 1.1).astype(np.float32)
+    pert = ((rng.rand(B, Cn, 3) * 2 - 1) * 0.55).astype(np.float32)
+    g_num = rng.randn(B, N, 3).astype(np.float32)
+    g_deno = rng.randn(B, N).astype(np.float32)
+    args = [_torch(a) for a in (central, ori, delta, pert, g_num, g_deno)]
+    central_t, ori_t, delta_t, pert_t, gn, gd = args
+    diffs, d, ker = K._fused_terms(central_t, ori_t, delta_t)
+    gker = ((gn[..., 0:1] * pert_t[:, None, :, 0]
+             + gn[..., 1:2] * pert_t[:, None, :, 1])
+            + gn[..., 2:3] * pert_t[:, None, :, 2]) + gd[..., None]
+    gkk = gker * ker
+    w = ((gkk / (2.0 * delta_t * delta_t)[:, None, :]) / d).double()
+    kd = ker.double()
+    gnd = gn.double()
+    tc = torch.stack([w * diffs[0].double(), w * diffs[1].double(),
+                      w * diffs[2].double(), gkk.double() * d.double(),
+                      kd * gnd[..., 0:1], kd * gnd[..., 1:2],
+                      kd * gnd[..., 2:3]], dim=-1).numpy()
+    G, splits, _ = _fused_bwd_layout(*layout_of)
+    gori, cent = _fused_bwd_order(tc, N, Cn, G, splits)
+    cent = torch.from_numpy(cent)
+    dinv = 1.0 / delta_t
+    got = (cent[..., 0:3].float(), -torch.from_numpy(gori).float(),
+           cent[..., 3].float() * (dinv * dinv * dinv),
+           cent[..., 4:7].float())
+    want = K.gaussian_blend_fused_bwd_plain(*args)
+    within(SUM_TOL, "l2")(got, want, "fused backward order")
+    for a, b in zip(got, want):
+        assert (a == b).float().mean().item() >= 0.99
 
 
 @pytest.mark.parametrize("B,Cn,N", [(2, 12, 200), (1, 192, 512),
