@@ -32,7 +32,12 @@
 // identical points) is one list of C hits, in ascending c like any other.
 // The sum order per (n, k) is fixed, so the output is the same bits on
 // every run and for any tiling of k. W^T comes from a first launch, a
-// transpose through shared-memory tiles into the wrapper's scratch.
+// transpose through shared-memory tiles into the wrapper's scratch. Past
+// the C whose hit list shared memory holds (C > 28767), each block keeps
+// its list in its own slice of a global scratch that the wrapper
+// allocates (`max_linear_dh_scratch`), read and written by the same code
+// in the same order, so every width gives the same bits as the plain
+// version.
 
 #include <cstdint>
 
@@ -48,30 +53,44 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TN = 64;    // output rows per block
 constexpr int TK = 256;   // output channels per block, at most
+constexpr size_t SMEM_MAX = 232448;   // an H100 block's shared memory
 
 // Shared memory (ints, then the staged g~):
 //   cnt  [WARPS][TN]  per-warp hits by row, then each warp's cursors
 //   off  [TN + 1]     each row's first hit
 //   hc   [C]          the hits' columns, grouped by row, ascending c
 //   hg   [C] f32      their g~
+// (hc and hg only while they fit; else in the block's global slice).
 __host__ __device__ inline size_t smem_bytes(int C) {
   return ((size_t)WARPS * TN + TN + 1 + 2 * (size_t)C) * 4;
+}
+
+// The ints of global hit-list scratch for (B, N, K, C): 2 C a block when
+// shared memory cannot hold the list, else none.
+inline long long hits_scratch(int B, int N, int K, int C) {
+  if (smem_bytes(C) <= SMEM_MAX) return 0;
+  return (long long)((N + TN - 1) / TN) * B * ((K + TK - 1) / TK) * 2 * C;
 }
 
 // The channels a thread owns: 16 bytes of them
 template <typename T>
 __host__ __device__ constexpr int slice_of() { return 16 / sizeof(T); }
 
-template <typename T>
+// GLOBAL_HITS: the hit list in this block's slice of hits, else in shared
+// memory (an instance each, so that shared-memory accesses stay LDS/STS)
+template <typename T, bool GLOBAL_HITS>
 __global__ void __launch_bounds__(THREADS)
 maxlin_dh_kernel(const int* __restrict__ row, const float* __restrict__ g,
-                 const T* __restrict__ wt, T* __restrict__ out, int N, int K,
-                 int C, int vec) {
+                 const T* __restrict__ wt, int* hits, T* __restrict__ out,
+                 int N, int K, int C, int vec) {
   constexpr int V = slice_of<T>();
   extern __shared__ int smem[];
   int* cnt = smem;
   int* off = cnt + WARPS * TN;
   int* hc = off + TN + 1;
+  if constexpr (GLOBAL_HITS)
+    hc = hits + (((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                 blockIdx.x) * 2 * (size_t)C;
   float* hg = reinterpret_cast<float*>(hc + C);
 
   const int b = blockIdx.y;
@@ -211,15 +230,16 @@ transpose_kernel(const T* __restrict__ w, T* __restrict__ wt, int K,
 
 template <typename T>
 int launch(const int* row, const float* g, const void* w, void* wt,
-           void* out, int B, int N, int K, int C, cudaStream_t stream) {
+           int* hits, void* out, int B, int N, int K, int C,
+           cudaStream_t stream) {
   transpose_kernel<T><<<dim3((C + 31) / 32, (K + 31) / 32), dim3(32, 8), 0,
                         stream>>>(static_cast<const T*>(w),
                                   static_cast<T*>(wt), K, C);
-  const size_t smem = smem_bytes(C);
+  const size_t smem = hits == nullptr ? smem_bytes(C) : smem_bytes(0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        maxlin_dh_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        maxlin_dh_kernel<T, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // 16-byte slices need rows of whole 16-byte words and aligned bases
@@ -227,23 +247,37 @@ int launch(const int* row, const float* g, const void* w, void* wt,
       ((reinterpret_cast<uintptr_t>(wt) | reinterpret_cast<uintptr_t>(out)) &
        15) == 0;
   const dim3 grid((N + TN - 1) / TN, B, (K + TK - 1) / TK);
-  maxlin_dh_kernel<T><<<grid, THREADS, smem, stream>>>(
-      row, g, static_cast<const T*>(wt), static_cast<T*>(out), N, K, C, vec);
+  if (hits == nullptr)
+    maxlin_dh_kernel<T, false><<<grid, THREADS, smem, stream>>>(
+        row, g, static_cast<const T*>(wt), hits, static_cast<T*>(out), N, K,
+        C, vec);
+  else
+    maxlin_dh_kernel<T, true><<<grid, THREADS, smem, stream>>>(
+        row, g, static_cast<const T*>(wt), hits, static_cast<T*>(out), N, K,
+        C, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // row [B, C] i32, g [B, C] f32, w [K, C], the scratch wt [C, K] and out
-// [B, N, K] of one dtype (is_bf16 selects bf16, else f32). All
-// contiguous. Two launches: the transpose of w into wt, then the
-// gradient. Needs (8 * 64 + 65 + 2 C) * 4 bytes of shared memory; the
-// wrapper refuses shapes above the 227 KB a block can have (C > 28767).
+// [B, N, K] of one dtype (is_bf16 selects bf16, else f32), and hits, int
+// scratch of max_linear_dh_scratch(B, N, K, C) ints (null when that is
+// 0). All contiguous. Two launches: the transpose of w into wt, then the
+// gradient. (8 * 64 + 65 + 2 C) * 4 bytes of shared memory up to C =
+// 28767, 2308 past it.
 extern "C" int max_linear_dh(const int* row, const float* g, const void* w,
-                             void* wt, void* out, int B, int N, int K, int C,
-                             int is_bf16, void* stream) {
+                             void* wt, int* hits, void* out, int B, int N,
+                             int K, int C, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((hits == nullptr) != (hits_scratch(B, N, K, C) == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
-    return launch<__nv_bfloat16>(row, g, w, wt, out, B, N, K, C, s);
-  return launch<float>(row, g, w, wt, out, B, N, K, C, s);
+    return launch<__nv_bfloat16>(row, g, w, wt, hits, out, B, N, K, C, s);
+  return launch<float>(row, g, w, wt, hits, out, B, N, K, C, s);
+}
+
+// The ints of hit-list scratch max_linear_dh takes for (B, N, K, C).
+extern "C" long long max_linear_dh_scratch(int B, int N, int K, int C) {
+  return hits_scratch(B, N, K, C);
 }

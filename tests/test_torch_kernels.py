@@ -130,6 +130,30 @@ def test_max_linear_dh_matches_pallas_bf16():
                                   np.asarray(want.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_max_linear_dh_past_the_old_width_cap_matches_pallas(bf16):
+    """`max_linear_dh` at C = 57824 columns, well past the width whose hit
+    list a block's shared memory holds on the card (28767; there the list
+    now lives in a global scratch, held to the plain version by
+    tests/test_torch_cuda.py::test_max_linear_dh_width_cap): against the
+    Pallas kernel in interpret mode, as the JAX package's tests run it.
+    Integer data: exact sums on both sides."""
+    rng = np.random.RandomState(34)
+    B, N, Kc, C = 1, 16, 4, 57824
+    row = rng.randint(0, N, (B, C)).astype(np.int32)
+    row[0, :C // 2] = 5                     # a row winning half the columns
+    g = rng.randint(-8, 9, (B, C)).astype(np.float32)
+    w = rng.randint(-4, 5, (Kc, C)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                           torch.float32)
+    want = PK.max_linear_dh_pallas(jnp.asarray(row), jnp.asarray(g),
+                                   jnp.asarray(w, jdt), N)
+    got = K.max_linear_dh(_torch(row), _torch(g), _torch(w, tdt), N)
+    assert got.shape == (B, N, Kc) and got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("shape,M,bf16", [((2, 100, 3), 300, False),
                                           ((2, 130, 8), 64, True)])
 def test_gather_rows_bitwise(shape, M, bf16):
@@ -1131,6 +1155,148 @@ def test_fused_bwd_kernel_order_stays_within_sum_tol(B, Cn, N, layout_of):
         assert (a == b).float().mean().item() >= 0.99
 
 
+def _fma32(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """The f32 fused multiply-add RN32(x y + z), exactly: x y is exact in
+    f64; the f64 sum with z is taken with its rounding error (TwoSum) and
+    rounded to odd, which then rounds to f32 as the exact value does (53
+    bits >= 24 + 2). Finite, non-overflowing operands."""
+    p = x.astype(np.float64) * y.astype(np.float64)
+    z = z.astype(np.float64)
+    s = p + z
+    bp = s - z
+    e = (p - bp) + (z - (s - bp))
+    odd = (s.view(np.uint64) & 1) == 1
+    to_odd = np.nextafter(s, np.where(e > 0, np.inf, -np.inf))
+    return np.where((e == 0) | odd, s, to_odd).astype(np.float32)
+
+
+def _fwd_quotient(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """`csrc/gaussian_blend_fused.cu`'s forward quotient a / b: y = RN(1 /
+    b) once a centre, q0 = RN(a y), q = fma(fma(-q0, b, a), y, q0)."""
+    y = np.float32(1) / b
+    q0 = a * y
+    return _fma32(_fma32(-q0, b, a), y, q0)
+
+
+def test_fused_fwd_fma_model_rounds_once():
+    """`_fma32` against exact rational arithmetic, where products and sums
+    cancel and where the sum falls near an f32 midpoint."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(31)
+    n = 3000
+    x = (rng.randn(n) * 2.0 ** rng.randint(-10, 10, n)).astype(np.float32)
+    y = (rng.randn(n) * 2.0 ** rng.randint(-10, 10, n)).astype(np.float32)
+    z = np.where(rng.rand(n) < 0.5, -(x.astype(np.float64) * y),
+                 rng.randn(n) * 2.0 ** rng.randint(-30, 10, n)
+                 ).astype(np.float32)
+    half = (2.0 ** -24 * (1 + rng.randint(0, 1 << 12, n) / 4096.0)
+            ).astype(np.float32)                     # near half an ulp of z
+    z2 = (1 + rng.rand(n)).astype(np.float32)
+    for xs, ys, zs in ((x, y, z), (half, np.ones(n, np.float32), z2)):
+        got = _fma32(xs, ys, zs)
+        for i in range(n):
+            v = Fraction(float(xs[i])) * Fraction(float(ys[i])) + Fraction(
+                float(zs[i]))
+            c = np.float32(float(v))
+            near = [np.nextafter(c, np.float32(-np.inf)), c,
+                    np.nextafter(c, np.float32(np.inf))]
+            want = min(near, key=lambda f: (abs(Fraction(float(f)) - v),
+                                            int(f.view(np.uint32)) & 1))
+            assert got[i] == want, (xs[i], ys[i], zs[i])
+
+
+def test_fused_fwd_quotient_from_f32_reciprocal_is_ieee_division():
+    """The fused forward's quotient -d / (2 delta^2) from the centre's
+    correctly rounded f32 reciprocal (Markstein's correction, two FMAs),
+    modelled with exact FMAs (`_fma32`): bit for bit the IEEE f32
+    quotient (the plain version's division) wherever the kernel takes it,
+    i.e. |a| in [2^-E, 2^(E+2)] and b in [2^-E, 2^E] for the source's
+    E = FWD_TAME_EXP: over random significands at every exponent of that
+    range, HiT-ADV's own range, and every significand of b against
+    chosen ones of a (and the reverse)."""
+    E = _FUSED["FWD_TAME_EXP"]
+    rng = np.random.RandomState(32)
+
+    def floats(n, lo, hi, sign=True):
+        bits = (rng.randint(lo + 127, hi + 128, n).astype(np.uint32) << 23
+                | rng.randint(0, 1 << 23, n).astype(np.uint32))
+        if sign:
+            bits |= rng.randint(0, 2, n).astype(np.uint32) << 31
+        return bits.view(np.float32)
+
+    n = 1 << 21
+    pairs = [(floats(n, -E, E + 1), floats(n, -E, E - 1, sign=False)),
+             (-(np.sqrt(rng.rand(n) * 12) + 1e-12).astype(np.float32),
+              (2 * (0.1 + rng.rand(n) * 1.1) ** 2).astype(np.float32))]
+    every = ((127 << 23) | np.arange(1 << 23, dtype=np.uint32)).view(
+        np.float32)
+
+    def sig(m):
+        return np.full(1 << 23, (127 << 23) | m, np.uint32).view(np.float32)
+    pairs += [(sig(0), every), (sig((1 << 23) - 1), every),
+              (every, sig((1 << 23) - 1)), (every, sig(0x555555))]
+    for a, b in pairs:
+        same = (a / b).view(np.uint32) == _fwd_quotient(a, b).view(
+            np.uint32)
+        assert same.all(), (a[~same][:4], b[~same][:4])
+    # the tame inputs' range: d = sqrt(s + 1e-24) >= 2^-E, and |dx| < 2^(E+1)
+    # keeps d < 2^(E+2)
+    assert np.sqrt(np.float32(1e-24)) >= np.float32(2.0 ** -E)
+    big = np.float32(2.0 ** (E + 1))
+    assert np.sqrt(np.float32(3) * big * big) < 2.0 ** (E + 2)
+
+
+def _fused_fwd_order(t: np.ndarray) -> np.ndarray:
+    """The fused forward kernel's sums of the f64 terms ``t`` [B, N, Cn, 4]
+    (k px, k py, k pz, k) in its order -> [B, N, 4]: split s's sums, from
+    0, over the s-th of S = FWD_S ranges of ceil(cc / S) centres of each
+    chunk of FWD_CCH, chunks and centres in ascending order; then the
+    splits' sums added in split order (split 0's first)."""
+    cch, S = _FUSED["FWD_CCH"], _FUSED["FWD_S"]
+    Cn = t.shape[2]
+    parts = np.zeros((S,) + t.shape[:2] + (4,))
+    for j0 in range(0, Cn, cch):
+        cc = min(cch, Cn - j0)
+        per = -(-cc // S)
+        for s in range(S):
+            for j in range(min(cc, s * per), min(cc, s * per + per)):
+                parts[s] += t[:, :, j0 + j]
+    total = parts[0]
+    for s in range(1, S):
+        total = total + parts[s]
+    return total
+
+
+@pytest.mark.parametrize("B,Cn,N", [(2, 192, 1024), (1, 1600, 300),
+                                    (2, 45, 1000), (3, 7, 130)])
+def test_fused_fwd_kernel_order_stays_within_sum_tol(B, Cn, N):
+    """A numpy model of the fused forward kernel's summation order
+    (`_fused_fwd_order`, read from the source's constants) against the
+    plain version's f64 sums of the same f32 terms, at the flagship's
+    Cn, a Cn past a staged chunk, and short last split ranges: within
+    `chip_smoke.SUM_TOL`, and equal in at least 99% of the entries."""
+    from chip_smoke import SUM_TOL, within
+
+    rng = np.random.RandomState(33)
+    ori = (rng.randn(B, N, 3) * 0.5).astype(np.float32)
+    sel = rng.randint(0, N, size=(B, Cn))
+    central = np.stack([ori[b, sel[b]] for b in range(B)])
+    delta = (0.1 + rng.rand(B, Cn) * 1.1).astype(np.float32)
+    pert = ((rng.rand(B, Cn, 3) * 2 - 1) * 0.55).astype(np.float32)
+    args = [_torch(a) for a in (central, ori, delta, pert)]
+    kd = K._fused_terms(*args[:3])[2].double().numpy()
+    pd = args[3].double().numpy()
+    t = np.stack([kd * pd[:, None, :, 0], kd * pd[:, None, :, 1],
+                  kd * pd[:, None, :, 2], kd], axis=-1)
+    sums = torch.from_numpy(_fused_fwd_order(t)).float()
+    got = (sums[..., :3], sums[..., 3])
+    want = K.gaussian_blend_fused_plain(*args)
+    within(SUM_TOL, "max")(got, want, "fused forward order")
+    for a, b in zip(got, want):
+        assert (a == b).float().mean().item() >= 0.99
+
+
 @pytest.mark.parametrize("B,Cn,N", [(2, 12, 200), (1, 192, 512),
                                     (2, 15, 130)])
 def test_gaussian_blend_fused_pair_matches_pallas(B, Cn, N):
@@ -1200,7 +1366,8 @@ def test_gaussian_blend_fused_plain_chunks_sum_alike():
 
 def _port_files():
     return sorted((ROOT / "hitadv_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_turns.py"]
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile_turns.py",
+        ROOT / "scripts" / "torch_sass_loops.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
