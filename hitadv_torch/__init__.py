@@ -12,8 +12,9 @@ Conventions carried over from the reference:
     tensor's device alone: a CUDA tensor launches the kernel (or raises),
     a CPU tensor runs the kernel's plain PyTorch version;
   * entry points (`make_hit_adv`, `make_cw_perturb`, `make_cw_knn`, the
-    model constructors, `python -m hitadv_torch.eval`) run on
-    ``device="cuda"`` unless the caller asks for the CPU.
+    FGM makers, `make_saliency_drop`, `make_geoa3`, the model
+    constructors, `python -m hitadv_torch.eval`) run on ``device="cuda"``
+    unless the caller asks for the CPU.
 
 The reference computes its distance and blend products in full f32, so
 TF32 is switched off for matmuls and cuDNN here, where the package starts.

@@ -8,7 +8,7 @@ Everything here stays on the device: masks and selections are
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,42 @@ def make_adv_fn(name: str, kappa: float = 0.0,
             return lambda lg, t: logits_adv_loss(lg, t, kappa)
         return lambda lg, t: untargeted_logits_adv_loss(lg, t, kappa)
     raise ValueError(f"unknown adv_func {name!r}")
+
+
+class Draws:
+    """An attack's random draws: pinned by the caller (``init_overrides``,
+    a mapping of the draws ``keys`` to arrays, so that a run can be held
+    against the JAX package's under the same draws) or drawn from the
+    generator passed to each run."""
+
+    def __init__(self, init_overrides: Optional[Mapping], keys, dev):
+        self.dev = dev
+        self.needed = bool(keys)
+        self.pinned = {}
+        if init_overrides is not None:
+            missing = set(keys) - set(init_overrides)
+            if missing:
+                raise ValueError(f"init_overrides lacks {sorted(missing)}")
+            self.pinned = {k: torch.as_tensor(init_overrides[k],
+                                              dtype=torch.float32).to(dev)
+                           for k in keys}
+
+    def check(self, generator: Optional[torch.Generator]):
+        if self.needed and not self.pinned and generator is None:
+            raise ValueError("attack: pass a torch.Generator (or build the "
+                             "attack with init_overrides)")
+
+    def get(self, key: str, draw: Callable[[], torch.Tensor]):
+        """The pinned ``key``, else ``draw()``."""
+        return self.pinned[key] if self.pinned else draw()
+
+    def noise(self, shape, generator, step: Optional[int] = None):
+        """The 1e-7-scaled Gaussian start: the pinned ``"noise"`` (its
+        ``step``-th entry when given), else a draw of ``shape``."""
+        if self.pinned:
+            noise = self.pinned["noise"]
+            return noise if step is None else noise[step]
+        return torch.randn(shape, generator=generator, device=self.dev) * 1e-7
 
 
 class BestState(NamedTuple):

@@ -69,7 +69,9 @@ class EvalConfig:
     ae_checkpoint: Optional[str] = None
     ae_fit_steps: int = 300
 
-    # defenses (`eval.py:64-66`); not ported yet: a value raises
+    # defenses (`eval.py:64-66`): srs | sor | jitter, at attack time
+    # (the attack differentiates through it) and at eval time (the judging
+    # alone)
     defense_method: Optional[str] = None
     eval_defense_method: Optional[str] = None
 

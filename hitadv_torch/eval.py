@@ -6,9 +6,15 @@ print its metrics. It runs on the card unless ``--device cpu`` is given,
 and raises when asked for CUDA without one.
 
 The port has the attacks HiT-ADV, CW-Perturb (targeted and untargeted,
-L2 or ``--dist_func chamfer``), CW-kNN and CW-UKNN, and the synthetic
-dataset. The other registry names, the real datasets, the defenses,
-restarts and the device meshes raise `NotImplementedError` naming the
+L2 or ``--dist_func chamfer``), CW-kNN and CW-UKNN, the FGM family (FGSM,
+IFGSM, MIFGSM, PGD, FGSM-RS, FGM-L2, IFGM-L2), SaliencyDrop, GeoA3 and
+GeoA3-Untarget; the victims PointNet, DGCNN, PointNet++, PCT, PointConv
+and GeoA3's PointNet; the defenses SRS, SOR and jitter, at attack time
+(``--defense_method``: the attack differentiates through it, and the
+judging sees it too) and at eval time (``--eval_defense_method``: the
+judging alone); and the synthetic dataset. The other registry names
+(the Add and autoencoder attacks, CW-LPIPS), the real datasets, restarts
+and the device meshes raise `NotImplementedError` naming the
 `ROADMAP.md` item that brings them; nothing falls back to something else.
 """
 
@@ -35,24 +41,23 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 # attack names -> the title of the ROADMAP.md §1 item that ports them
 _ATTACK_ITEMS = {
-    **dict.fromkeys(("fgsm", "ifgsm", "mifgsm", "pgd", "fgsm-rs", "fgm-l2",
-                     "ifgm-l2", "drop"), "FGM family and SaliencyDrop"),
-    **dict.fromkeys(("geoa3", "geoa3-untarget"), "GeoA3"),
     **dict.fromkeys(("add", "add-cluster", "add-object"), "Add attacks"),
     **dict.fromkeys(("cw-lpips", "aof", "taof", "uaeaof", "advpc",
                      "uadvpc"), "Autoencoder attacks and CW-LPIPS")}
 
 
+# the FGM family's registry names -> their makers in `attacks`
+_FGM_MAKERS = {"fgsm": "make_fgsm", "ifgsm": "make_ifgsm",
+               "mifgsm": "make_mifgsm", "pgd": "make_pgd",
+               "fgsm-rs": "make_fgsm_rs", "fgm-l2": "make_fgm_l2",
+               "ifgm-l2": "make_ifgm_l2"}
+
+
 def check_ported(cfg: EvalConfig) -> None:
     """Raise `NotImplementedError` for every setting besides the attack
     that the port does not run yet (`build_attack` checks the attack)."""
-    if cfg.model == "geoa3_pointnet":
-        raise _not_ported("--model geoa3_pointnet", "GeoA3")
     if cfg.dataset in ("ModelNet", "ShapeNetPart"):
         raise _not_ported(f"--dataset {cfg.dataset}", "Data loaders")
-    if cfg.defense_method or cfg.eval_defense_method:
-        raise _not_ported("--defense_method / --eval_defense_method",
-                          "Defenses")
     for flag, value in (("--restarts", cfg.restarts),
                         ("--n_devices", cfg.n_devices),
                         ("--sp_devices", cfg.sp_devices)):
@@ -82,7 +87,8 @@ def build_model(cfg: EvalConfig) -> torch.nn.Module:
     else:
         module = {"pointnet": models.pointnet, "pointnet++": models.pointnet2,
                   "dgcnn": models.dgcnn, "pct": models.pct,
-                  "pointconv": models.pointconv}[cfg.model]
+                  "pointconv": models.pointconv,
+                  "geoa3_pointnet": models.geoa3_pointnet}[cfg.model]
         tree = ckpt.convert_state_dict(
             ckpt.load_torch_state_dict(cfg.checkpoint), module.TORCH_SPEC)
     return cls(params=params_from_numpy(tree, dev), **kw)
@@ -103,7 +109,10 @@ def _cw_dist_fn(cfg: EvalConfig):
 def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
     """The attack ``cfg.attack_type`` on ``cfg.device`` (the reference's
     registry, `eval.py:51-225`, for the attacks the port has): ``attack(
-    points [B, N, 3|6], labels, generator) -> AttackResult``."""
+    points [B, N, 3|6], labels, generator) -> AttackResult``. The FGM
+    family differentiates ``--adv_func`` (untargeted); every attack reads
+    the coordinates ``points[..., :3]`` itself, and GeoA3 the normals
+    ``points[..., 3:6]`` too."""
     from hitadv_torch import attacks, losses
 
     dev = resolve_device(cfg.device)
@@ -111,6 +120,9 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
     untargeted_margin = attacks.make_adv_fn("logits", cfg.kappa,
                                             targeted=False)
     targeted_margin = attacks.make_adv_fn("logits", cfg.kappa, targeted=True)
+    ce = attacks.make_adv_fn(cfg.adv_func, cfg.kappa, targeted=False)
+    fgm_cfg = attacks.FGMConfig(budget=cfg.budget, num_iter=cfg.num_iter,
+                                step_size=cfg.step_size, mu=cfg.mu)
     cw_cfg = attacks.CWConfig(
         attack_lr=cfg.attack_lr, init_weight=cfg.init_weight,
         max_weight=cfg.max_weight, binary_step=cfg.binary_step,
@@ -127,6 +139,9 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
             budget=cfg.budget)
         return attacks.make_hit_adv(logits_fn, untargeted_margin, hit_cfg,
                                     device=dev)
+    if name in _FGM_MAKERS:
+        return getattr(attacks, _FGM_MAKERS[name])(logits_fn, ce, fgm_cfg,
+                                                   device=dev)
     if name in ("cw-perturb", "cw-perturbt"):
         return attacks.make_cw_perturb(
             logits_fn, targeted_margin, _cw_dist_fn(cfg),
@@ -146,6 +161,18 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
             logits_fn, targeted_margin if targeted else untargeted_margin,
             losses.chamfer_knn_dist, clip_fn,
             attacks.CWKNNConfig(targeted=targeted), device=dev)
+    if name in ("geoa3", "geoa3-untarget"):
+        return attacks.make_geoa3(
+            logits_fn, attacks.GeoA3Config(
+                attack_lr=cfg.attack_lr, binary_max_steps=cfg.binary_step,
+                iter_max_steps=cfg.num_iter,
+                curv_loss_knn=cfg.curv_loss_knn,
+                targeted=(name == "geoa3")), device=dev)
+    if name == "drop":
+        return attacks.make_saliency_drop(
+            logits_fn, attacks.DropConfig(
+                num_drop=min(cfg.num_drop, cfg.num_point // 2), k=cfg.k),
+            device=dev)
     if name in _ATTACK_ITEMS:
         raise _not_ported(f"the attack {cfg.attack_type!r}",
                           _ATTACK_ITEMS[name])
@@ -175,6 +202,26 @@ def parse_args(argv=None) -> Tuple[EvalConfig, argparse.Namespace]:
     return config_from_args(args), args
 
 
+def defended(cfg: EvalConfig, model: Callable, dev: torch.device
+             ) -> Tuple[Callable, Callable]:
+    """(the function the attack differentiates, the function that judges
+    the clean and adversarial predictions) (reference hooks,
+    `hitadv_tpu/eval.py:344-362`): ``--defense_method`` wraps the victim
+    for both, its draws from a generator seeded with ``cfg.seed``;
+    ``--eval_defense_method`` wraps the judging alone, on top, seeded
+    with ``cfg.seed + 1``."""
+    from hitadv_torch.defense import defended_logits_fn, get_defense
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    attacked = defended_logits_fn(
+        model, get_defense(cfg.defense_method, seeded(cfg.seed)))
+    judged = defended_logits_fn(
+        attacked, get_defense(cfg.eval_defense_method, seeded(cfg.seed + 1)))
+    return attacked, judged
+
+
 def main(argv=None) -> dict:
     from hitadv_torch.evaluation import eval_asr
     from hitadv_torch.utils import EvalProgress
@@ -184,12 +231,13 @@ def main(argv=None) -> dict:
     dev = resolve_device(cfg.device)
 
     model = build_model(cfg)
-    attack = build_attack(cfg, model)
+    logits_fn, eval_logits_fn = defended(cfg, model, dev)
+    attack = build_attack(cfg, logits_fn)
     batches = build_batches(cfg)
     if cfg.max_batches:
         batches = itertools.islice(batches, cfg.max_batches)
     progress = EvalProgress(args.resume) if args.resume else None
-    metrics = eval_asr(model, attack, batches, seed=cfg.seed,
+    metrics = eval_asr(eval_logits_fn, attack, batches, seed=cfg.seed,
                        uniform_k=cfg.k, log_dir=cfg.log_dir,
                        progress=progress, device=dev)
     print({k: round(float(v), 6) for k, v in metrics.items()})

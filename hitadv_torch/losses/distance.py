@@ -1,7 +1,8 @@
 """Distance losses between point clouds (port of
 `hitadv_tpu/losses/distance.py`): the L2, Chamfer, Hausdorff and kNN
-outlier distances of the CW attacks, the curvature terms of HiT-ADV, and
-the curvature-std distance of the evaluation.
+outlier distances of the CW attacks, the Laplacian smoothness, the
+curvature terms of HiT-ADV and GeoA3, and the curvature-std distance of
+the evaluation.
 
 Clouds are ``[B, N, 3]``; every loss returns a per-example ``[B]``
 vector. The set distances run on the k=1 kNN (`geometry.knn_points`),
@@ -80,6 +81,16 @@ def chamfer_knn_dist(adv_pc: torch.Tensor, ori_pc: torch.Tensor,
     return cd * chamfer_weight + kd * knn_weight
 
 
+def laplacian_dist(adv_pc: torch.Tensor, ori_pc: torch.Tensor,
+                   nearest_indices: torch.Tensor) -> torch.Tensor:
+    """Sum of the squared perturbation norms over each point's kNN ring
+    ``nearest_indices`` ``[B, N, k]`` (reference `util/dist_utils.py:
+    178-229`: the neighbours' perturbations, the centre's not subtracted,
+    as the code has it)."""
+    neigh = G.index_points(adv_pc - ori_pc, nearest_indices)  # [B,N,k,3]
+    return torch.sum(neigh ** 2, dim=(1, 2, 3))
+
+
 def _kappa(pc: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor
            ) -> torch.Tensor:
     nn_pts = G.index_points(pc, idx)                         # [B, N, k, 3]
@@ -94,6 +105,30 @@ def get_kappa(pc: torch.Tensor, normal: torch.Tensor,
     ring (self excluded). ``pc``/``normal`` are ``[B, N, 3]``."""
     _, idx = G.knn_indices(pc, k)
     return _kappa(pc, normal, idx)
+
+
+def get_kappa_adv(adv_pc: torch.Tensor, ori_pc: torch.Tensor,
+                  ori_normal: torch.Tensor, k: int = 2
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """kappa of the adversarial cloud with the normal of each point's
+    nearest clean point (reference `FGM/GeoA3_args.py:161-182`): (kappa
+    ``[B, N]``, normals ``[B, N, 3]``). The 1-NN's indices carry no
+    gradient; the gradient flows through the gathers of `get_kappa`."""
+    nn1 = G.knn_points(adv_pc, ori_pc, 1)
+    normal = G.index_points(ori_normal, nn1.idx[..., 0])     # [B, N, 3]
+    return get_kappa(adv_pc, normal, k), normal
+
+
+def curv_dist(ori_pc: torch.Tensor, adv_pc: torch.Tensor,
+              ori_normal: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """GeoA3's curvature consistency ``[B]``: the mean squared difference
+    of each adversarial point's kappa and its nearest clean point's
+    (reference `util/dist_utils.py:498-561`)."""
+    ori_kappa = get_kappa(ori_pc, ori_normal, k)
+    adv_kappa, _ = get_kappa_adv(adv_pc, ori_pc, ori_normal, k)
+    nn1 = G.knn_points(adv_pc, ori_pc, 1)
+    onenn = torch.gather(ori_kappa, 1, nn1.idx[..., 0].long())
+    return torch.mean((adv_kappa - onenn) ** 2, dim=-1)
 
 
 def get_kappa_std(pc: torch.Tensor, normal: torch.Tensor,

@@ -1,11 +1,12 @@
-"""Victim models. PointNet, DGCNN, PointNet++ (SSG), PCT and PointConv are
-ported so far."""
+"""Victim models. PointNet, DGCNN, PointNet++ (SSG), PCT, PointConv and
+GeoA3's PointNet are ported so far."""
 
 from typing import Dict, Type
 
 from torch import nn
 
 from hitadv_torch.models.dgcnn import DGCNN, DGCNNConfig  # noqa: F401
+from hitadv_torch.models.geoa3_pointnet import GeoA3PointNet
 from hitadv_torch.models.pct import PCT
 from hitadv_torch.models.pointconv import PointConv
 from hitadv_torch.models.pointnet import PointNet
@@ -15,7 +16,8 @@ _REGISTRY: Dict[str, Type[nn.Module]] = {"pointnet": PointNet,
                                          "dgcnn": DGCNN,
                                          "pointnet++": PointNet2,
                                          "pct": PCT,
-                                         "pointconv": PointConv}
+                                         "pointconv": PointConv,
+                                         "geoa3_pointnet": GeoA3PointNet}
 
 
 def get_model(name: str) -> Type[nn.Module]:

@@ -1,10 +1,11 @@
 """Functional layers on parameter dicts, eval mode.
 
 Port of `hitadv_tpu/nn/functional.py` for inference: pointwise conv
-(= linear), BN folded into the preceding linear, the STN-transform fold,
-ReLU and LeakyReLU, the conv-BN-act stack, the neighbour max with the
-reference's tie-splitting gradient, and the fused conv + global max-pool
-over the max-linear kernels.
+(= linear), the general 1D conv over the point axis, eval-mode BN, BN
+folded into the preceding linear, the STN-transform fold, ReLU and
+LeakyReLU, the conv-BN-act stack, the neighbour max with the reference's
+tie-splitting gradient, and the fused conv + global max-pool over the
+max-linear kernels.
 
 Parameters are mappings of tensors in the reference's layout: a linear or
 1x1-conv is ``{"w": [Cin, Cout], "b": [Cout]}``, a BN is
@@ -57,6 +58,24 @@ def linear_init(in_features: int, out_features: int, *,
 
 
 conv1x1_init = linear_init
+
+
+def conv1d_init(in_channels: int, out_channels: int, kernel_size: int, *,
+                generator: torch.Generator, device,
+                bias: bool = True) -> Dict[str, torch.Tensor]:
+    """A general 1D conv's ``{"w": [K, Cin, Cout], "b": [Cout]}`` (torch's
+    ``[Cout, Cin, K]`` transposed, as the checkpoint converter gives it),
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with fan_in = Cin K."""
+    bound = 1.0 / math.sqrt(in_channels * kernel_size)
+
+    def uniform(*shape):
+        u = torch.rand(shape, generator=generator, device=device)
+        return u * (2.0 * bound) - bound
+
+    p = {"w": uniform(kernel_size, in_channels, out_channels)}
+    if bias:
+        p["b"] = uniform(out_channels)
+    return p
 
 
 def batchnorm_init(c: int, *, device) -> Dict[str, torch.Tensor]:
@@ -146,6 +165,34 @@ def linear_parts(p: Params, parts: Sequence[torch.Tensor],
         y = y.to(compute_dtype)
         return y + _cast(p["b"], compute_dtype) if "b" in p else y
     return y + p["b"] if "b" in p else y
+
+
+def conv1d(p: Params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """1D conv over the point axis, ``[B, N, Cin] -> [B, N, Cout]``, with
+    the reference's "SAME" zero padding ((K - 1) // 2 before, the rest
+    after; reference :129-156, ``lax.conv_general_dilated`` in the layout
+    NWC/WIO/NWC). Plain XLA in the reference, `torch.nn.functional.
+    conv1d` (cuDNN on the card, TF32 off) here; with ``compute_dtype`` the
+    operands are cast to it and the product accumulates in f32."""
+    w = p["w"]                                               # [K, Cin, Cout]
+    k = w.shape[0]
+    left = (k - 1) // 2
+    xt = _cast(x, compute_dtype).transpose(1, 2)             # [B, Cin, N]
+    xt = torch.nn.functional.pad(xt, (left, k - 1 - left))
+    y = torch.nn.functional.conv1d(
+        xt, _cast(w, compute_dtype).permute(2, 1, 0)).transpose(1, 2)
+    if "b" in p:
+        y = y + _cast(p["b"], compute_dtype)
+    return y
+
+
+def batchnorm(p: Params, x: torch.Tensor, compute_dtype=None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode BN over the trailing channel axis, in f32, the result in
+    ``compute_dtype`` (reference :200-226)."""
+    inv = torch.rsqrt(p["var"] + eps)
+    y = (x.float() - p["mean"]) * (inv * p["scale"]) + p["bias"]
+    return _cast(y, compute_dtype)
 
 
 def fold_bn(lin: Params, bn: Params, eps: float = 1e-5

@@ -1,7 +1,8 @@
 """Point-cloud geometry of the ported paths.
 
-Port of the parts of `hitadv_tpu/ops/geometry.py` that HiT-ADV, the CW
-attacks, DGCNN, PointNet++, PCT and PointConv run: distances, gathers (by
+Port of the parts of `hitadv_tpu/ops/geometry.py` that HiT-ADV, the CW,
+FGM, SaliencyDrop and GeoA3 attacks, the defenses, DGCNN, PointNet++, PCT
+and PointConv run: distances (and the self distance matrix), gathers (by
 rows and grouped neighbours-major) and their scatter-add transposes, kNN
 (coordinate and feature space), farthest point sampling, the ball query,
 the set-abstraction front ends, the graph max-pool, PointConv's KDE
@@ -34,6 +35,11 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     s2 = torch.sum(src * src, dim=-1, keepdim=True)          # [B, N, 1]
     d2 = torch.sum(dst * dst, dim=-1, keepdim=True)          # [B, M, 1]
     return s2 - 2.0 * inner + d2.transpose(-1, -2)
+
+
+def pairwise_distance(points: torch.Tensor) -> torch.Tensor:
+    """Self squared-distance matrix ``[B, N, N]`` (reference :101-108)."""
+    return square_distance(points, points)
 
 
 # ---------------------------------------------------------------------------

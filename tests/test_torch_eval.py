@@ -326,14 +326,15 @@ def test_main_asr_matches_jax_main(attack, extra, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--attack_type", "PGD"], ["--attack_type", "GeoA3"],
+    ["--dataset", "synthetic", "--attack_type", "Add"],
+    ["--dataset", "synthetic", "--attack_type", "AdvPC"],
     ["--attack_type", "cw_lpips"], ["--dataset", "ModelNet"],
-    ["--dataset", "synthetic", "--defense_method", "sor"],
+    ["--dataset", "synthetic", "--attack_type", "add_cluster"],
     ["--dataset", "synthetic", "--restarts", "4"],
     ["--dataset", "synthetic", "--n_devices", "8"],
     ["--dataset", "synthetic", "--sp_devices", "2", "--dist_func",
      "chamfer"],
-    ["--dataset", "synthetic", "--model", "geoa3_pointnet"]])
+    ["--dataset", "ShapeNetPart"]])
 def test_unported_settings_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EV.main(argv + ["--device", "cpu", "--log_dir", ""])
