@@ -1,6 +1,24 @@
 """Attacks: HiT-ADV (the flagship), the CW attacks, the FGM family,
-SaliencyDrop and GeoA3."""
+SaliencyDrop, GeoA3, the Add attacks, AdvPC and the AOF family."""
 
+from hitadv_torch.attacks.add import (  # noqa: F401
+    AddClusterConfig,
+    AddConfig,
+    AddObjectConfig,
+    default_object_pc,
+    get_critical_points,
+    make_cw_add,
+    make_cw_add_clusters,
+    make_cw_add_objects,
+)
+from hitadv_torch.attacks.advpc import AdvPCConfig, make_advpc  # noqa: F401
+from hitadv_torch.attacks.aof import (  # noqa: F401
+    AOFConfig,
+    graph_laplacian,
+    graph_laplacian_partial,
+    laplacian_matrix,
+    make_aof,
+)
 from hitadv_torch.attacks.base import AttackResult, make_adv_fn  # noqa: F401
 from hitadv_torch.attacks.cw import (  # noqa: F401
     CWConfig,

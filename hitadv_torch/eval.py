@@ -5,17 +5,21 @@ victim, the batches and the attack, then run `evaluation.eval_asr` and
 print its metrics. It runs on the card unless ``--device cpu`` is given,
 and raises when asked for CUDA without one.
 
-The port has the attacks HiT-ADV, CW-Perturb (targeted and untargeted,
-L2 or ``--dist_func chamfer``), CW-kNN and CW-UKNN, the FGM family (FGSM,
-IFGSM, MIFGSM, PGD, FGSM-RS, FGM-L2, IFGM-L2), SaliencyDrop, GeoA3 and
-GeoA3-Untarget; the victims PointNet, DGCNN, PointNet++, PCT, PointConv
-and GeoA3's PointNet; the defenses SRS, SOR and jitter, at attack time
-(``--defense_method``: the attack differentiates through it, and the
-judging sees it too) and at eval time (``--eval_defense_method``: the
-judging alone); and the synthetic dataset. The other registry names
-(the Add and autoencoder attacks, CW-LPIPS), the real datasets, restarts
-and the device meshes raise `NotImplementedError` naming the
-`ROADMAP.md` item that brings them; nothing falls back to something else.
+The port has every attack of the registry: HiT-ADV, CW-Perturb
+(targeted and untargeted, L2 or ``--dist_func chamfer``), CW-LPIPS,
+CW-kNN and CW-UKNN, the FGM family (FGSM, IFGSM, MIFGSM, PGD, FGSM-RS,
+FGM-L2, IFGM-L2), SaliencyDrop, GeoA3 and GeoA3-Untarget, the Add
+attacks (Add, Add-Cluster, Add-Object), AOF, TAOF and UAEAOF, AdvPC and
+UAdvPC (the autoencoder: ``--ae_checkpoint``, else fitted on the eval's
+clouds and cached under ``HITADV_CACHE_DIR``, else with
+``--ae_fit_steps 0`` a random one); the victims PointNet, DGCNN,
+PointNet++, PCT, PointConv and GeoA3's PointNet; the defenses SRS, SOR
+and jitter, at attack time (``--defense_method``: the attack
+differentiates through it, and the judging sees it too) and at eval time
+(``--eval_defense_method``: the judging alone); and the synthetic
+dataset. The real datasets, restarts and the device meshes raise
+`NotImplementedError` naming the `ROADMAP.md` item that brings them;
+nothing falls back to something else.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
-from typing import Callable, Tuple
+import os
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from hitadv_torch import resolve_device
@@ -39,13 +45,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{item})")
 
 
-# attack names -> the title of the ROADMAP.md §1 item that ports them
-_ATTACK_ITEMS = {
-    **dict.fromkeys(("add", "add-cluster", "add-object"), "Add attacks"),
-    **dict.fromkeys(("cw-lpips", "aof", "taof", "uaeaof", "advpc",
-                     "uadvpc"), "Autoencoder attacks and CW-LPIPS")}
-
-
 # the FGM family's registry names -> their makers in `attacks`
 _FGM_MAKERS = {"fgsm": "make_fgsm", "ifgsm": "make_ifgsm",
                "mifgsm": "make_mifgsm", "pgd": "make_pgd",
@@ -54,8 +53,8 @@ _FGM_MAKERS = {"fgsm": "make_fgsm", "ifgsm": "make_ifgsm",
 
 
 def check_ported(cfg: EvalConfig) -> None:
-    """Raise `NotImplementedError` for every setting besides the attack
-    that the port does not run yet (`build_attack` checks the attack)."""
+    """Raise `NotImplementedError` for every setting that the port does
+    not run yet (every attack of the registry runs)."""
     if cfg.dataset in ("ModelNet", "ShapeNetPart"):
         raise _not_ported(f"--dataset {cfg.dataset}", "Data loaders")
     for flag, value in (("--restarts", cfg.restarts),
@@ -106,13 +105,20 @@ def _cw_dist_fn(cfg: EvalConfig):
     return losses.chamfer_dist
 
 
-def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
+def build_attack(cfg: EvalConfig, logits_fn: Callable,
+                 model: Optional[torch.nn.Module] = None,
+                 ae_fn: Optional[Callable] = None) -> Callable:
     """The attack ``cfg.attack_type`` on ``cfg.device`` (the reference's
-    registry, `eval.py:51-225`, for the attacks the port has): ``attack(
-    points [B, N, 3|6], labels, generator) -> AttackResult``. The FGM
-    family differentiates ``--adv_func`` (untargeted); every attack reads
-    the coordinates ``points[..., :3]`` itself, and GeoA3 the normals
-    ``points[..., 3:6]`` too."""
+    registry, `eval.py:51-225`): ``attack(points [B, N, 3|6], labels,
+    generator) -> AttackResult``. The FGM family differentiates
+    ``--adv_func`` (untargeted); the targeted attacks (CW-Perturb,
+    CW-LPIPS, the Add family, TAOF, AdvPC, GeoA3) pull towards the labels
+    they are handed. Every attack reads the coordinates ``points[...,
+    :3]`` itself, and GeoA3 the normals ``points[..., 3:6]`` too.
+
+    ``model`` is the undefended victim, whose features CW-LPIPS compares
+    (PointNet only); ``ae_fn`` the autoencoder of UAEAOF, AdvPC and
+    UAdvPC (`default_ae` when None)."""
     from hitadv_torch import attacks, losses
 
     dev = resolve_device(cfg.device)
@@ -127,6 +133,9 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
         attack_lr=cfg.attack_lr, init_weight=cfg.init_weight,
         max_weight=cfg.max_weight, binary_step=cfg.binary_step,
         num_iter=cfg.num_iter)
+
+    def linf_clip(adv, ori):
+        return losses.clip_points_linf(adv, ori, cfg.budget)
 
     if name == "hit-adv":
         hit_cfg = attacks.HiTADVConfig(
@@ -150,6 +159,20 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
         return attacks.make_cw_perturb(
             logits_fn, untargeted_margin, _cw_dist_fn(cfg),
             dataclasses.replace(cw_cfg, targeted=False), device=dev)
+    if name == "cw-lpips":
+        # CW-Perturb with the LPIPS distance over the PointNet feature
+        # stack (`util/dist_utils.py:412-461` and the feature model)
+        if cfg.model != "pointnet" or model is None:
+            raise ValueError("CW-LPIPS needs the pointnet feature model "
+                             "(pass model to build_attack)")
+
+        def lpips_fn(adv, ori):
+            return losses.lpips_distance(model.features(adv),
+                                         model.features(ori))
+
+        return attacks.make_cw_perturb(
+            logits_fn, targeted_margin, lpips_fn,
+            dataclasses.replace(cw_cfg, targeted=True), device=dev)
     if name in ("cw-knn", "cw-uknn"):
         targeted = name == "cw-knn"
 
@@ -161,6 +184,45 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
             logits_fn, targeted_margin if targeted else untargeted_margin,
             losses.chamfer_knn_dist, clip_fn,
             attacks.CWKNNConfig(targeted=targeted), device=dev)
+    if name in ("aof", "taof", "uaeaof"):
+        mode = {"aof": "untargeted", "taof": "targeted",
+                "uaeaof": "ae_untargeted"}[name]
+        if mode == "ae_untargeted" and ae_fn is None:
+            ae_fn = default_ae(cfg)
+        # UAEAOF's GAMMA is 0.25 (`CW/UAEAOF.py:59`), AOF's and TAOF's
+        # 0.5 (`CW/AOF.py:59`)
+        return attacks.make_aof(
+            logits_fn,
+            targeted_margin if mode == "targeted" else untargeted_margin,
+            linf_clip, attacks.AOFConfig(
+                attack_lr=cfg.attack_lr, num_iter=cfg.num_iter, mode=mode,
+                gamma=0.25 if mode == "ae_untargeted" else 0.5),
+            ae_fn=ae_fn, device=dev)
+    if name in ("advpc", "uadvpc"):
+        targeted = name == "advpc"
+        if ae_fn is None:
+            ae_fn = default_ae(cfg)
+        return attacks.make_advpc(
+            logits_fn, ae_fn,
+            targeted_margin if targeted else untargeted_margin, linf_clip,
+            attacks.AdvPCConfig(attack_lr=cfg.attack_lr,
+                                num_iter=cfg.num_iter, targeted=targeted),
+            device=dev)
+    if name == "add":
+        # the reference's 512 added points assume N = 1024; the
+        # critical-point cut needs num_add <= N
+        return attacks.make_cw_add(
+            logits_fn, targeted_margin, cfg=attacks.AddConfig(
+                num_iter=cfg.num_iter, binary_step=cfg.binary_step,
+                num_add=min(512, cfg.num_point)), device=dev)
+    if name == "add-cluster":
+        return attacks.make_cw_add_clusters(
+            logits_fn, targeted_margin,
+            cfg=attacks.AddClusterConfig(num_iter=cfg.num_iter), device=dev)
+    if name == "add-object":
+        return attacks.make_cw_add_objects(
+            logits_fn, targeted_margin,
+            cfg=attacks.AddObjectConfig(num_iter=cfg.num_iter), device=dev)
     if name in ("geoa3", "geoa3-untarget"):
         return attacks.make_geoa3(
             logits_fn, attacks.GeoA3Config(
@@ -173,10 +235,80 @@ def build_attack(cfg: EvalConfig, logits_fn: Callable) -> Callable:
             logits_fn, attacks.DropConfig(
                 num_drop=min(cfg.num_drop, cfg.num_point // 2), k=cfg.k),
             device=dev)
-    if name in _ATTACK_ITEMS:
-        raise _not_ported(f"the attack {cfg.attack_type!r}",
-                          _ATTACK_ITEMS[name])
     raise ValueError(f"unknown attack_type {cfg.attack_type!r}")
+
+
+def ae_cache_path(cfg: EvalConfig) -> str:
+    """Where `default_ae` caches a fitted AE: ``HITADV_CACHE_DIR``, else
+    ``~/.cache/hitadv_torch``. An f32 fit takes the JAX package's file
+    name (dataset, points, steps and seed), so that either package's f32
+    fit loads; a ``--bf16`` fit adds ``_bf16`` to it, so that an f32 run
+    never loads a bf16 fit nor the other way round. (The JAX package
+    names its bf16 fits as its f32 ones: in a cache directory shared
+    with it, the port's f32 run loads whichever it wrote.)"""
+    cache_dir = os.environ.get(
+        "HITADV_CACHE_DIR",
+        os.path.join(os.path.expanduser("~"), ".cache", "hitadv_torch"))
+    dtype = "_bf16" if cfg.bf16 else ""
+    return os.path.join(cache_dir, f"ae_{cfg.dataset}_{cfg.num_point}p_"
+                                   f"{cfg.ae_fit_steps}s_{cfg.seed}"
+                                   f"{dtype}.pkl")
+
+
+def default_ae(cfg: EvalConfig) -> torch.nn.Module:
+    """The autoencoder of UAEAOF, AdvPC and UAdvPC (reference
+    `CW/AdvPC.py:83-99,142`; JAX `eval._default_ae`), on ``cfg.device``,
+    bf16 with ``--bf16`` as the victim:
+      1. ``--ae_checkpoint``, a pickled parameter tree (either package's
+         ``save_params``);
+      2. else, with ``--ae_fit_steps`` > 0, the tree cached at
+         `ae_cache_path`, or one fitted there and then for that many Adam
+         steps on the first 8 batches' clouds (Chamfer reconstruction,
+         batches of up to 16, from the initialisation of seed ``--seed``,
+         the batch draws of seed ``--seed`` + 1) and cached;
+      3. ``--ae_fit_steps 0``: a random AE, with the reference's warning.
+    A missing checkpoint or a failed fit raises."""
+    from hitadv_torch.convert import params_from_numpy
+    from hitadv_torch.models import autoencoder as AE
+    from hitadv_torch.utils import checkpoint as ckpt
+
+    dev = resolve_device(cfg.device)
+    kw = dict(compute_dtype=torch.bfloat16 if cfg.bf16 else None, device=dev)
+
+    def seeded(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def loaded(path):
+        return AE.AutoEncoder(
+            params=params_from_numpy(ckpt.load_params(path), dev), **kw)
+
+    if cfg.ae_checkpoint:
+        return loaded(cfg.ae_checkpoint)
+    if cfg.ae_fit_steps <= 0:
+        print("WARNING: running an AE-conditioned attack with a RANDOM "
+              "autoencoder (--ae_fit_steps 0). The reference assumes a "
+              "pretrained AE (CW/AdvPC.py:83-99); success senses and "
+              "ASR are NOT comparable. Pass --ae_checkpoint or set "
+              "--ae_fit_steps > 0.")
+        return AE.AutoEncoder(cfg.num_point, generator=seeded(cfg.seed),
+                              **kw)
+    cache = ae_cache_path(cfg)
+    if os.path.exists(cache):
+        print(f"loading cached fitted AE: {cache}")
+        return loaded(cache)
+    print(f"no --ae_checkpoint given: fitting the AE on eval data "
+          f"({cfg.ae_fit_steps} steps) and caching to {cache}")
+    clouds = torch.from_numpy(np.concatenate(
+        [pts[..., :3] for pts, _ in itertools.islice(build_batches(cfg), 8)],
+        axis=0).astype(np.float32)).to(dev)
+    tree = AE.fit(AE.init_params(cfg.num_point, generator=seeded(cfg.seed),
+                                 device=dev),
+                  clouds, seeded(cfg.seed + 1), steps=cfg.ae_fit_steps,
+                  batch_size=min(16, clouds.shape[0]),
+                  compute_dtype=kw["compute_dtype"])
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    ckpt.save_params(cache, tree)
+    return AE.AutoEncoder(params=tree, **kw)
 
 
 def build_batches(cfg: EvalConfig):
@@ -232,7 +364,7 @@ def main(argv=None) -> dict:
 
     model = build_model(cfg)
     logits_fn, eval_logits_fn = defended(cfg, model, dev)
-    attack = build_attack(cfg, logits_fn)
+    attack = build_attack(cfg, logits_fn, model)
     batches = build_batches(cfg)
     if cfg.max_batches:
         batches = itertools.islice(batches, cfg.max_batches)

@@ -33,7 +33,7 @@ def _batch_metrics(logits_fn: Callable, ori_xyz: torch.Tensor,
             curv_d = torch.mean(L.curv_std_dist(ori_xyz, adv_xyz, ori_normal,
                                                 k=4))
         else:
-            # attacks that drop points: CurvStdDist is undefined across
+            # attacks that drop or add points: CurvStdDist is undefined across
             # clouds of different sizes, so it is NaN, as in the reference
             curv_d = torch.full((), float("nan"), device=adv_xyz.device)
         mask_ori = torch.argmax(logits_fn(ori_xyz), dim=-1) == labels

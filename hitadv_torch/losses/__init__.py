@@ -16,13 +16,18 @@ from hitadv_torch.losses.distance import (  # noqa: F401
     chamfer_knn_dist,
     curv_dist,
     curv_std_dist,
+    far_chamfer_dist,
+    farthest_dist,
     get_kappa,
     get_kappa_adv,
     get_kappa_std,
     hausdorff_dist,
     knn_dist,
+    l2_chamfer_dist,
     l2_dist,
     laplacian_dist,
+    lpips_distance,
+    normalize_flatten_features,
 )
 from hitadv_torch.losses.geoa3 import (  # noqa: F401
     chamfer_loss,

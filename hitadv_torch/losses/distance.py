@@ -1,8 +1,9 @@
 """Distance losses between point clouds (port of
 `hitadv_tpu/losses/distance.py`): the L2, Chamfer, Hausdorff and kNN
 outlier distances of the CW attacks, the Laplacian smoothness, the
-curvature terms of HiT-ADV and GeoA3, and the curvature-std distance of
-the evaluation.
+distances of the Add attacks, the curvature terms of HiT-ADV and GeoA3,
+the curvature-std distance of the evaluation, and CW-LPIPS's perceptual
+distance.
 
 Clouds are ``[B, N, 3]``; every loss returns a per-example ``[B]``
 vector. The set distances run on the k=1 kNN (`geometry.knn_points`),
@@ -12,8 +13,9 @@ whose backward is the kNN kernel's gather and scatter-add on CUDA; the
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from hitadv_torch.ops import geometry as G
@@ -91,6 +93,42 @@ def laplacian_dist(adv_pc: torch.Tensor, ori_pc: torch.Tensor,
     return torch.sum(neigh ** 2, dim=(1, 2, 3))
 
 
+def farthest_dist(adv_clusters: torch.Tensor) -> torch.Tensor:
+    """The largest distance inside each cluster, summed over the clusters
+    (reference `util/dist_utils.py:297-325`); ``adv_clusters`` is ``[B,
+    num_add, cl_num_p, 3]``. The 1e-7 is added to the difference, before
+    the norm, as the reference has it; ``amax`` splits the gradient among
+    exact ties, as jnp.max does."""
+    delta = (adv_clusters[:, :, None, :, :]
+             - adv_clusters[:, :, :, None, :] + 1e-7)
+    norm = torch.linalg.vector_norm(delta, dim=-1)           # [B,na,np,np]
+    far = torch.amax(torch.amax(norm, dim=2), dim=2)         # [B, na]
+    return torch.sum(far, dim=1)
+
+
+def far_chamfer_dist(adv_pc: torch.Tensor, ori_pc: torch.Tensor,
+                     num_add: int) -> torch.Tensor:
+    """Add-Cluster's distance: the clusters' compactness plus 0.1 times
+    their added-to-original Chamfer proximity (reference
+    `util/dist_utils.py:328-365`). ``adv_pc`` is the added points alone,
+    ``[B, num_add * cl_num_p, 3]``."""
+    cd = chamfer_dist(adv_pc, ori_pc, method="adv2ori")
+    clusters = adv_pc.reshape(adv_pc.shape[0], num_add, -1, 3)
+    return farthest_dist(clusters) + cd * 0.1
+
+
+def l2_chamfer_dist(adv_pc: torch.Tensor, ori_pc: torch.Tensor,
+                    adv_obj: torch.Tensor, ori_obj: torch.Tensor
+                    ) -> torch.Tensor:
+    """Add-Object's distance: the objects' L2 change plus 0.2 times the
+    added-to-original Chamfer proximity of the placed points (reference
+    `util/dist_utils.py:368-409`)."""
+    B = adv_pc.shape[0]
+    cd = chamfer_dist(adv_pc, ori_pc, method="adv2ori")
+    l2 = l2_dist(adv_obj.reshape(B, -1, 3), ori_obj.reshape(B, -1, 3))
+    return l2 + 0.2 * cd
+
+
 def _kappa(pc: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor
            ) -> torch.Tensor:
     nn_pts = G.index_points(pc, idx)                         # [B, N, k, 3]
@@ -150,3 +188,26 @@ def curv_std_dist(ori_pc: torch.Tensor, adv_pc: torch.Tensor,
     ori_std = get_kappa_std(ori_pc, ori_normal, k)
     adv_std = get_kappa_std(adv_pc, ori_normal, k)
     return torch.linalg.vector_norm(ori_std - adv_std, dim=-1)
+
+
+def normalize_flatten_features(features: Sequence[torch.Tensor],
+                               eps: float = 1e-10) -> torch.Tensor:
+    """Each ``[B, N, C]`` activation normalised over its channels, scaled
+    by 1/sqrt(N) (the f32 square root, as jnp.sqrt of the point count),
+    flattened, and all of them concatenated -> ``[B, sum N C]``
+    (reference `util/dist_utils.py:564-592`, channels-last)."""
+    out = []
+    for f in features:
+        norm = torch.sqrt(torch.sum(f ** 2, dim=-1, keepdim=True)) + eps
+        root_n = float(np.sqrt(np.float32(f.shape[1])))
+        out.append((f / (norm * root_n)).reshape(f.shape[0], -1))
+    return torch.cat(out, dim=1)
+
+
+def lpips_distance(features1: Sequence[torch.Tensor],
+                   features2: Sequence[torch.Tensor]) -> torch.Tensor:
+    """LPIPS between two activation stacks ``[B]`` (reference
+    `util/dist_utils.py:412-461`)."""
+    return torch.linalg.vector_norm(
+        normalize_flatten_features(features1)
+        - normalize_flatten_features(features2), dim=1)

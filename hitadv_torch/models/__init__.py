@@ -1,10 +1,11 @@
-"""Victim models. PointNet, DGCNN, PointNet++ (SSG), PCT, PointConv and
-GeoA3's PointNet are ported so far."""
+"""Victim models (PointNet, DGCNN, PointNet++ (SSG), PCT, PointConv and
+GeoA3's PointNet are ported so far) and AdvPC's autoencoder."""
 
 from typing import Dict, Type
 
 from torch import nn
 
+from hitadv_torch.models.autoencoder import AutoEncoder  # noqa: F401
 from hitadv_torch.models.dgcnn import DGCNN, DGCNNConfig  # noqa: F401
 from hitadv_torch.models.geoa3_pointnet import GeoA3PointNet
 from hitadv_torch.models.pct import PCT

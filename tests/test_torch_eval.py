@@ -326,10 +326,11 @@ def test_main_asr_matches_jax_main(attack, extra, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dataset", "synthetic", "--attack_type", "Add"],
-    ["--dataset", "synthetic", "--attack_type", "AdvPC"],
+    ["--dataset", "ModelNet", "--attack_type", "Add"],
+    ["--dataset", "synthetic", "--restarts", "2", "--attack_type", "AdvPC"],
     ["--attack_type", "cw_lpips"], ["--dataset", "ModelNet"],
-    ["--dataset", "synthetic", "--attack_type", "add_cluster"],
+    ["--dataset", "synthetic", "--n_devices", "2", "--attack_type",
+     "add_cluster"],
     ["--dataset", "synthetic", "--restarts", "4"],
     ["--dataset", "synthetic", "--n_devices", "8"],
     ["--dataset", "synthetic", "--sp_devices", "2", "--dist_func",

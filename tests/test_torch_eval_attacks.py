@@ -1,6 +1,7 @@
 """The attacks and settings that `hitadv_torch.eval` gained with the FGM
-family, SaliencyDrop, the defenses and GeoA3, against the JAX package's
-`main` on the CPU, and the registry's bookkeeping."""
+family, SaliencyDrop, the defenses, GeoA3, the Add attacks, the
+autoencoder attacks and CW-LPIPS, against the JAX package's `main` on the
+CPU, and the registry's bookkeeping."""
 
 import os
 
@@ -8,11 +9,13 @@ import numpy as np
 import jax
 import pytest
 
+from hitadv_tpu.models import autoencoder as JAE
 from hitadv_tpu.models import geoa3_pointnet as JPN
 from hitadv_tpu.ops import geometry as JG
 from hitadv_tpu.utils import checkpoint as JCK
 from hitadv_torch import config as CFG
 from hitadv_torch import eval as EV
+from hitadv_torch.models import PointNet
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
 PKL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -107,26 +110,110 @@ def test_main_geoa3_matches_jax_main(geoa3_victim):
     assert np.isfinite(got["curv_std_dist"])
 
 
-def test_attack_items_hold_only_items_7_and_8():
-    assert set(EV._ATTACK_ITEMS) == {
-        "add", "add-cluster", "add-object", "cw-lpips", "aof", "taof",
-        "uaeaof", "advpc", "uadvpc"}
-    assert set(EV._ATTACK_ITEMS.values()) == {
-        "Add attacks", "Autoencoder attacks and CW-LPIPS"}
-    for name in EV._ATTACK_ITEMS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EV.build_attack(CFG.EvalConfig(attack_type=name, device="cpu"),
-                            None)
+@pytest.fixture(scope="module")
+def jax_ae(tmp_path_factory):
+    """An AE for 64-point clouds drawn by the JAX package and pickled by
+    its ``save_params``, for both packages' ``--ae_checkpoint``."""
+    path = str(tmp_path_factory.mktemp("ae") / "ae.pkl")
+    JCK.save_params(path, JAE.init(jax.random.PRNGKey(3), num_points=64))
+    return path
+
+
+@pytest.mark.parametrize("extra", [
+    ["--attack_type", "Add", "--binary_step", "2", "--num_iter", "5"],
+    ["--attack_type", "Add-Cluster", "--num_iter", "4", "--num_point",
+     "128"],
+    ["--attack_type", "AOF", "--num_iter", "5"],
+    ["--attack_type", "UAdvPC", "--num_iter", "5"],
+    ["--attack_type", "CW-LPIPS", "--binary_step", "2", "--num_iter", "5"]],
+    ids=["add", "add-cluster", "aof", "uadvpc", "cw-lpips"])
+def test_main_add_and_ae_attacks_match_jax_main(extra, jax_ae):
+    """The Add attacks, AOF, UAdvPC (both packages on one AE that the JAX
+    package saved, through ``--ae_checkpoint``) and CW-LPIPS through both
+    `main`s on the trained victim: the same clean-correct clouds and ASR
+    within one example. The Add attacks are targeted at the true labels,
+    as in the JAX package, so a cloud flips only where they fail and
+    leave it elsewhere. Add-Cluster takes 128 critical points, so its
+    clouds have 128 points."""
+    got, _ = _against_jax(TRAINED + extra + ["--ae_checkpoint", jax_ae])
+    if "Add" in extra[1]:
+        assert np.isnan(got["curv_std_dist"])
+    else:
+        assert np.isfinite(got["curv_std_dist"])
+
+
+# the registry names of `README.md`, each of which `build_attack` builds
+REGISTRY = ("HiT-ADV", "FGSM", "IFGSM", "MIFGSM", "PGD", "FGSM-RS", "FGM-L2",
+            "IFGM-L2", "CW-Perturb", "CW-UPerturb", "CW-LPIPS", "CW-KNN",
+            "CW-UKNN", "GeoA3", "GeoA3-Untarget", "AOF", "TAOF", "UAEAOF",
+            "AdvPC", "UAdvPC", "Add", "Add-Cluster", "Add-Object", "Drop")
+
+
+@pytest.mark.parametrize("name", REGISTRY)
+def test_every_registry_name_builds(name):
+    """Each of the 24 names builds an attack on the CPU (the AE attacks on
+    a random AE, ``--ae_fit_steps 0``; CW-LPIPS on the PointNet it is
+    handed), and no setting of it raises `NotImplementedError`."""
+    assert not hasattr(EV, "_ATTACK_ITEMS")
+    cfg = CFG.EvalConfig(attack_type=name, dataset="synthetic",
+                         num_point=64, ae_fit_steps=0, device="cpu")
+    EV.check_ported(cfg)
+    model = PointNet(10, device="cpu")
+    assert callable(EV.build_attack(cfg, model, model))
+
+
+def test_ae_cache_keeps_f32_and_bf16_fits_apart(tmp_path, monkeypatch,
+                                               capsys):
+    """`eval.default_ae` caches an f32 fit under the JAX package's file
+    name (`hitadv_tpu/eval.py`: dataset, points, steps, seed) and a bf16
+    fit under that name with ``_bf16``; a later call of either precision
+    loads its own fit, never the other's."""
+    import torch
+
+    monkeypatch.setenv("HITADV_CACHE_DIR", str(tmp_path))
+    base = dict(attack_type="uadvpc", dataset="synthetic", batch_size=4,
+                synthetic_size=8, num_point=64, ae_fit_steps=1, seed=2,
+                device="cpu")
+    cfgs = (CFG.EvalConfig(**base), CFG.EvalConfig(bf16=True, **base))
+    names = ("ae_synthetic_64p_1s_2.pkl", "ae_synthetic_64p_1s_2_bf16.pkl")
+    assert [os.path.basename(EV.ae_cache_path(c)) for c in cfgs] == \
+        list(names)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 64, 3).astype(
+        np.float32))
+    with torch.no_grad():
+        fitted = [EV.default_ae(c)(x) for c in cfgs]
+        assert sorted(os.listdir(tmp_path)) == list(names)
+        capsys.readouterr()
+        cached = [EV.default_ae(c)(x) for c in cfgs]
+    assert capsys.readouterr().out.count("loading cached fitted AE") == 2
+    for a, b in zip(fitted, cached):
+        assert torch.equal(a, b)
+    assert not torch.equal(*fitted)
+
+
+def test_cw_lpips_needs_the_pointnet():
+    for cfg, model in ((CFG.EvalConfig(attack_type="cw-lpips",
+                                       device="cpu"), None),
+                       (CFG.EvalConfig(attack_type="cw-lpips", model="dgcnn",
+                                       device="cpu"),
+                        PointNet(10, device="cpu"))):
+        with pytest.raises(ValueError, match="pointnet"):
+            EV.build_attack(cfg, lambda x: x, model)
 
 
 @pytest.mark.parametrize("name", [
     "FGSM", "IFGSM", "MIFGSM", "PGD", "FGSM_RS", "FGM_l2", "IFGM_l2",
-    "drop", "GeoA3", "GeoA3-Untarget"])
+    "drop", "GeoA3", "GeoA3-Untarget", "add", "add_cluster", "add_object",
+    "aof", "taof", "uaeaof", "advpc", "uadvpc", "cw_lpips"])
 def test_ported_settings_build(name):
     """`check_ported` raises for none of the ported settings, and each new
-    registry name builds an attack."""
+    registry name builds an attack (the names in their other spellings;
+    the AE attacks on an AE they are handed, CW-LPIPS on the PointNet)."""
     cfg = CFG.EvalConfig(attack_type=name, dataset="synthetic",
-                         model="geoa3_pointnet", defense_method="srs",
+                         model="pointnet" if name == "cw_lpips" else
+                         "geoa3_pointnet", defense_method="srs",
                          eval_defense_method="sor", device="cpu")
     EV.check_ported(cfg)
-    assert callable(EV.build_attack(cfg, lambda x: x))
+    model = PointNet(10, device="cpu") if name == "cw_lpips" else None
+    assert callable(EV.build_attack(cfg, lambda x: x, model,
+                                    ae_fn=lambda x: x))
