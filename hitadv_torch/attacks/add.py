@@ -45,6 +45,12 @@ from hitadv_torch.losses import (
     l2_chamfer_dist,
 )
 from hitadv_torch.ops import geometry as G
+from hitadv_torch.parallel.shard import (
+    batch_draw,
+    batch_mean,
+    gather_batch,
+    own_rows,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +69,7 @@ def get_critical_points(logits_fn: Callable, pc: torch.Tensor,
     with torch.enable_grad():
         x = pc.detach().requires_grad_(True)
         (grad,) = torch.autograd.grad(
-            torch.mean(cross_entropy_loss(logits_fn(x), labels)), x)
+            batch_mean(cross_entropy_loss(logits_fn(x), labels)), x)
     score = torch.sum(grad ** 2, dim=-1)                      # [B, N]
     idx = torch.sort(score, dim=1, descending=True, stable=True).indices
     return G.index_points(pc, idx[:, :num].contiguous())
@@ -141,10 +147,13 @@ def _cluster_seeds(cri_points: np.ndarray, num_add: int, cl_num_p: int,
 
 def _seed_points(logits_fn, ori, labels, num_cri, seeds_of, dev):
     """The critical points' DBSCAN seeds (``seeds_of(numpy points)``) as
-    an f32 tensor on ``dev``: one copy to the host a batch."""
-    cri = get_critical_points(logits_fn, ori, labels, num_cri)
-    return torch.from_numpy(np.asarray(
-        seeds_of(cri.cpu().numpy()), np.float32)).to(dev)
+    an f32 tensor on ``dev``: one copy to the host a batch. Under a batch
+    sharding every rank seeds the whole batch's critical points, in
+    order, and keeps its rows: the host generators draw as in one
+    process."""
+    cri = gather_batch(get_critical_points(logits_fn, ori, labels, num_cri))
+    return own_rows(torch.from_numpy(np.asarray(
+        seeds_of(cri.cpu().numpy()), np.float32)).to(dev))
 
 
 def _inputs(points, labels, dev):
@@ -191,8 +200,8 @@ def _optimize_added(logits_fn, adv_fn, dist_fn, cfg, ori, labels, start,
                 x = adv.detach().requires_grad_(True)
                 logits = logits_fn(torch.cat([ori, x], dim=1))
                 dist = dist_fn(x, ori)
-                loss = (torch.mean(adv_fn(logits, labels))
-                        + torch.mean(dist * weight))
+                loss = (batch_mean(adv_fn(logits, labels))
+                        + batch_mean(dist * weight))
                 (grad,) = torch.autograd.grad(loss, x)
             with torch.no_grad():
                 # the iterate before its step (`CW/Add.py:140-160`)
@@ -437,12 +446,14 @@ def make_cw_add_objects(logits_fn: Callable, adv_fn: Callable,
                 noise_shift = draws.pinned["noise_shift"][step]
                 angles = draws.pinned["angles"][step]
             else:
-                noise_obj = torch.randn(clean_objs.shape, generator=generator,
-                                        device=dev) * 1e-7
-                noise_shift = torch.randn(centers0.shape, generator=generator,
-                                          device=dev) * 1e-7
-                angles = torch.rand((B, cfg.num_add, 3), generator=generator,
-                                    device=dev) * math.pi
+                def normal(shape):
+                    return torch.randn(shape, generator=generator,
+                                       device=dev)
+                noise_obj = batch_draw(normal, clean_objs.shape) * 1e-7
+                noise_shift = batch_draw(normal, centers0.shape) * 1e-7
+                angles = batch_draw(lambda s: torch.rand(
+                    s, generator=generator, device=dev),
+                    (B, cfg.num_add, 3)) * math.pi
             objs, shifts = clean_objs + noise_obj, centers0 + noise_shift
             opts = [adam_init(t) for t in (objs, shifts, angles)]
             best = BestState.init(zeros_add)
@@ -454,8 +465,8 @@ def make_cw_add_objects(logits_fn: Callable, adv_fn: Callable,
                         B, A, 3).contiguous()
                     logits = logits_fn(torch.cat([ori, added], dim=1))
                     d = dist(added, xs[0])
-                    loss = (torch.mean(adv_fn(logits, labels))
-                            + torch.mean(d * weight))
+                    loss = (batch_mean(adv_fn(logits, labels))
+                            + batch_mean(d * weight))
                     grads = torch.autograd.grad(loss, xs)
                 with torch.no_grad():
                     added = added.detach()

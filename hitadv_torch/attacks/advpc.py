@@ -34,6 +34,7 @@ from hitadv_torch.attacks.base import (
     adam_update,
     update_best,
 )
+from hitadv_torch.parallel.shard import batch_mean
 
 
 @dataclass(frozen=True)
@@ -78,8 +79,8 @@ def make_advpc(logits_fn: Callable, ae_fn: Callable, adv_fn: Callable,
         def loss_fn(adv):
             logits = logits_fn(adv)
             ae_logits = logits_fn(ae_fn(adv))
-            loss = ((1.0 - g) * torch.mean(adv_fn(logits, labels))
-                    + g * torch.mean(adv_fn(ae_logits, labels)))
+            loss = ((1.0 - g) * batch_mean(adv_fn(logits, labels))
+                    + g * batch_mean(adv_fn(ae_logits, labels)))
             return loss, (logits, ae_logits)
 
         o_best = BestState.init(ori)

@@ -36,6 +36,7 @@ from hitadv_torch.attacks.base import (
     update_best,
 )
 from hitadv_torch.ops import geometry as G
+from hitadv_torch.parallel.shard import batch_draw, batch_mean
 
 MODES = ("untargeted", "targeted", "ae_untargeted")
 # the subspace solver's filter rounds, Chebyshev degree and guard vectors
@@ -121,8 +122,9 @@ def low_band_subspace(L: torch.Tensor, low_pass: int = 100, *,
     kg = min(low_pass + SUBSPACE_GUARD, N)
     # Gershgorin: lambda_max(L) <= max_i (L_ii + sum_j |A_ij|) = 2 max D_ii
     sigma = 2.0 * torch.amax(torch.diagonal(L, dim1=1, dim2=2), dim=1)
-    Q = torch.randn((B, N, kg), generator=generator, dtype=L.dtype,
-                    device=L.device)
+    Q = batch_draw(lambda s: torch.randn(s, generator=generator,
+                                         dtype=L.dtype, device=L.device),
+                   (B, N, kg))
     Q, _ = torch.linalg.qr(Q)
 
     def ritz(Q):
@@ -215,14 +217,14 @@ def make_aof(logits_fn: Callable, adv_fn: Callable, clip_fn: Callable,
                 # (1 - 2 GAMMA) full + GAMMA ae + GAMMA lfc
                 # (`CW/UAEAOF.py:143-162`)
                 ae_logits = logits_fn(ae_fn(lfc + hfc))
-                loss = ((1.0 - 2.0 * g) * torch.mean(adv_fn(full_logits,
+                loss = ((1.0 - 2.0 * g) * batch_mean(adv_fn(full_logits,
                                                              labels))
-                        + g * torch.mean(adv_fn(ae_logits, labels)))
+                        + g * batch_mean(adv_fn(ae_logits, labels)))
             else:
                 # (1 - GAMMA) full + GAMMA lfc (`CW/AOF.py:143-150`)
                 ae_logits = full_logits
-                loss = (1.0 - g) * torch.mean(adv_fn(full_logits, labels))
-            loss = loss + g * torch.mean(adv_fn(lfc_logits, labels))
+                loss = (1.0 - g) * batch_mean(adv_fn(full_logits, labels))
+            loss = loss + g * batch_mean(adv_fn(lfc_logits, labels))
             return loss, (full_logits, lfc_logits, ae_logits)
 
         o_best = BestState.init(ori)

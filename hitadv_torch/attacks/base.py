@@ -3,7 +3,11 @@ result type, the adversarial-loss selector, best-so-far bookkeeping, the
 binary search over the loss weight, and a functional Adam.
 
 Everything here stays on the device: masks and selections are
-``torch.where``, never a branch on a tensor's value.
+``torch.where``, never a branch on a tensor's value. The terms that
+couple a batch's examples (loss means, whole-tensor min and max, random
+draws) go through `parallel.shard`, so that a batch split over ranks
+(`parallel.mesh.shard_attack`) gives each example what one process
+gives it.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from hitadv_torch.losses import (
     logits_adv_loss,
     untargeted_logits_adv_loss,
 )
+from hitadv_torch.parallel.shard import batch_draw
 
 
 class AttackResult(NamedTuple):
@@ -72,7 +77,8 @@ class Draws:
         if self.pinned:
             noise = self.pinned["noise"]
             return noise if step is None else noise[step]
-        return torch.randn(shape, generator=generator, device=self.dev) * 1e-7
+        return batch_draw(lambda s: torch.randn(
+            s, generator=generator, device=self.dev), shape) * 1e-7
 
 
 class BestState(NamedTuple):

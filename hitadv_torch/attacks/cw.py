@@ -31,6 +31,7 @@ from hitadv_torch.attacks.base import (
     update_best,
 )
 from hitadv_torch.losses import l2_dist
+from hitadv_torch.parallel.shard import batch_draw, batch_mean
 
 
 @dataclass(frozen=True)
@@ -101,8 +102,8 @@ def make_cw_perturb(logits_fn: Callable, adv_fn: Callable,
         def loss_fn(weight):
             def f(adv):
                 logits = logits_fn(adv)
-                al = torch.mean(adv_fn(logits, labels))
-                dl = torch.mean(dist_fn(adv, ori) * weight)
+                al = batch_mean(adv_fn(logits, labels))
+                dl = batch_mean(dist_fn(adv, ori) * weight)
                 return al + dl, logits
             return f
 
@@ -115,8 +116,8 @@ def make_cw_perturb(logits_fn: Callable, adv_fn: Callable,
             if noise is not None:
                 adv = ori + noise[step]
             else:
-                adv = ori + torch.randn(ori.shape, generator=generator,
-                                        device=dev) * 1e-7
+                adv = ori + batch_draw(lambda s: torch.randn(
+                    s, generator=generator, device=dev), ori.shape) * 1e-7
             opt = adam_init(adv)
             best = BestState.init(ori)
             f = loss_fn(weight)
@@ -200,13 +201,13 @@ def make_cw_knn(logits_fn: Callable, adv_fn: Callable, dist_fn: Callable,
         if noise is not None:
             adv = ori + noise
         else:
-            adv = ori + torch.randn(ori.shape, generator=generator,
-                                    device=dev) * 1e-7
+            adv = ori + batch_draw(lambda s: torch.randn(
+                s, generator=generator, device=dev), ori.shape) * 1e-7
 
         def loss_fn(adv):
             logits = logits_fn(adv)
-            al = torch.mean(adv_fn(logits, labels))
-            return al + torch.mean(dist_fn(adv, ori)) * N, None
+            al = batch_mean(adv_fn(logits, labels))
+            return al + batch_mean(dist_fn(adv, ori)) * N, None
 
         opt = adam_init(adv)
         for _ in range(cfg.num_iter):

@@ -25,6 +25,7 @@ from hitadv_torch import resolve_device
 from hitadv_torch.attacks.base import AttackResult
 from hitadv_torch.losses import cross_entropy_loss
 from hitadv_torch.ops import geometry as G
+from hitadv_torch.parallel.shard import batch_mean
 
 
 @dataclass(frozen=True)
@@ -43,7 +44,7 @@ def _ce_grad(logits_fn: Callable, pc: torch.Tensor,
     with torch.enable_grad():
         x = pc.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(
-            torch.mean(cross_entropy_loss(logits_fn(x), labels)), x)
+            batch_mean(cross_entropy_loss(logits_fn(x), labels)), x)
     return g
 
 

@@ -24,6 +24,7 @@ import torch
 from hitadv_torch import resolve_device
 from hitadv_torch.attacks.base import AttackResult, Draws
 from hitadv_torch.losses import clip_points_linf
+from hitadv_torch.parallel.shard import batch_draw, batch_mean
 
 
 @dataclass(frozen=True)
@@ -47,7 +48,7 @@ def _grad(logits_fn: Callable, adv_fn: Callable, pc: torch.Tensor,
     with torch.enable_grad():
         x = pc.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(
-            torch.mean(adv_fn(logits_fn(x), labels)), x)
+            batch_mean(adv_fn(logits_fn(x), labels)), x)
     return g
 
 
@@ -68,7 +69,8 @@ def _uniform_start(draws: Draws, shape, budget: float, generator):
     """The uniform offset in ``[-budget, budget]`` of PGD and FGSM-RS: the
     pinned ``"start"``, else a draw."""
     def draw():
-        u = torch.rand(shape, generator=generator, device=draws.dev)
+        u = batch_draw(lambda s: torch.rand(s, generator=generator,
+                                            device=draws.dev), shape)
         return u * (2.0 * budget) - budget
     return draws.get("start", draw)
 

@@ -42,6 +42,7 @@ from hitadv_torch.losses.geoa3 import (
     curvature_loss,
     hausdorff_loss,
 )
+from hitadv_torch.parallel.shard import batch_mean
 
 # the Hausdorff term's weight (`FGM/GeoA3_args.py`; Chamfer and curvature
 # weigh 1)
@@ -117,7 +118,7 @@ def make_geoa3(logits_fn: Callable, cfg: GeoA3Config = GeoA3Config(), *,
                     x = adv.detach().requires_grad_(True)
                     logits = logits_fn(x)
                     dist = dist_terms(x, ori, normal, ori_kappa)
-                    loss = torch.mean(adv_fn(logits, labels) + weight * dist)
+                    loss = batch_mean(adv_fn(logits, labels) + weight * dist)
                     (grad,) = torch.autograd.grad(loss, x)
                 with torch.no_grad():
                     pred = torch.argmax(logits, dim=-1)

@@ -39,6 +39,13 @@ from hitadv_torch.attacks.base import (
 )
 from hitadv_torch.losses import cross_entropy_loss, get_kappa, get_kappa_std
 from hitadv_torch.ops import geometry as G
+from hitadv_torch.parallel.shard import (
+    batch_amax,
+    batch_amin,
+    batch_draw,
+    batch_mean,
+    batch_sum,
+)
 
 
 @dataclass(frozen=True)
@@ -62,8 +69,9 @@ class HiTADVConfig:
 
 
 def _global_minmax_norm(x: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
-    """Whole-tensor (not per-example) min/max normalisation."""
-    lo, hi = torch.amin(x), torch.amax(x)
+    """Whole-tensor (not per-example) min/max normalisation: over the
+    whole batch, also when it is sharded."""
+    lo, hi = batch_amin(x), batch_amax(x)
     return (x - lo) / (hi - lo + eps)
 
 
@@ -101,7 +109,7 @@ def prepare_centrals(logits_fn: Callable, cfg: HiTADVConfig,
 
     with torch.enable_grad():
         x = ori.detach().requires_grad_(True)
-        loss = torch.mean(cross_entropy_loss(logits_fn(x), labels))
+        loss = batch_mean(cross_entropy_loss(logits_fn(x), labels))
         (grad,) = torch.autograd.grad(loss, x)
 
     with torch.no_grad():
@@ -113,8 +121,14 @@ def prepare_centrals(logits_fn: Callable, cfg: HiTADVConfig,
         score = (0.001 * _global_minmax_norm(saliency)
                  + _global_minmax_norm(ori_kappa_std))         # [B, N]
 
+        start = 0
+        if generator is not None:
+            B, N = ori.shape[:2]
+            start = batch_draw(lambda s: torch.randint(
+                0, N, s, generator=generator, device=ori.device,
+                dtype=torch.int32), (B,))
         far_idx = G.farthest_point_sample(ori, cfg.total_central_num,
-                                          generator=generator)
+                                          start=start)
         far_points = G.index_points(ori, far_idx)              # [B, Tc, 3]
         far_knn = G.knn_points(far_points, ori, k + 1)         # [B, Tc, k+1]
         ring = far_knn.idx.long()
@@ -188,7 +202,7 @@ def make_inner_iter(logits_fn: Callable, adv_fn: Callable,
         num, deno = deform(pert, delta)
         tmp_adv = ori + num / deno[..., None]
         logits = logits_fn(tmp_adv)
-        adv_loss = torch.mean(adv_fn(logits, labels))
+        adv_loss = batch_mean(adv_fn(logits, labels))
         dist_loss = 0.0
         if cfg.cd_weight != 0:
             # reference quirk (:233-235): the "chamfer" sees channels-first
@@ -196,17 +210,17 @@ def make_inner_iter(logits_fn: Callable, adv_fn: Callable,
             d33 = G.square_distance(tmp_adv.transpose(1, 2),
                                     ori.transpose(1, 2))       # [B, 3, 3]
             cd = torch.mean(torch.amin(d33, dim=2), dim=1)
-            dist_loss = dist_loss + torch.mean(cd * cfg.cd_weight)
+            dist_loss = dist_loss + batch_mean(cd * cfg.cd_weight)
         if cfg.ker_weight != 0:
             # global Frobenius norms over the whole batch, / Cn
-            t = (torch.sqrt(torch.sum(pert ** 2) + 1e-24)
-                 + torch.sqrt(torch.sum((1.0 - delta) ** 2) + 1e-24))
+            t = (torch.sqrt(batch_sum(pert ** 2) + 1e-24)
+                 + torch.sqrt(batch_sum((1.0 - delta) ** 2) + 1e-24))
             dist_loss = dist_loss + (t / Cn) * cfg.ker_weight
         if cfg.hide_weight != 0:
-            dist_loss = dist_loss + torch.mean(
+            dist_loss = dist_loss + batch_mean(
                 _curv_std_loss(delta, central_kappa_std, cfg)
                 * cfg.hide_weight)
-        total = adv_loss + torch.mean(weight) * dist_loss
+        total = adv_loss + batch_mean(weight) * dist_loss
         return total, tmp_adv, logits
 
     def inner_iter(s: InnerState) -> InnerState:
@@ -295,11 +309,12 @@ def make_hit_adv(logits_fn: Callable, adv_fn: Callable,
                 pert0 = overrides["pert"][step]
                 delta0 = overrides["delta"][step]
             else:
-                pert0 = torch.rand((B, Cn, 3), generator=generator,
-                                   device=dev) * cfg.budget
-                delta0 = cfg.min_sigm + torch.rand(
-                    (B, Cn), generator=generator, device=dev) * (
-                        cfg.max_sigm - cfg.min_sigm)
+                def uniform(shape):
+                    return torch.rand(shape, generator=generator,
+                                      device=dev)
+                pert0 = batch_draw(uniform, (B, Cn, 3)) * cfg.budget
+                delta0 = cfg.min_sigm + batch_draw(uniform, (B, Cn)) * (
+                    cfg.max_sigm - cfg.min_sigm)
             s = InnerState(pert=pert0, delta=delta0, opt_p=adam_init(pert0),
                            opt_d=adam_init(delta0), weight=weight,
                            best=BestState.init(ori), o_best=o_best,

@@ -64,8 +64,8 @@ class EvalConfig:
     max_sigm: float = 1.2
     min_sigm: float = 0.1
 
-    # AdvPC / UAEAOF autoencoder (`CW/AdvPC.py:83-99`); read by those
-    # attacks, which the port does not have yet
+    # the autoencoder of UAEAOF, AdvPC and UAdvPC (`CW/AdvPC.py:83-99`):
+    # a pickled tree, else fitted for ae_fit_steps steps and cached
     ae_checkpoint: Optional[str] = None
     ae_fit_steps: int = 300
 
@@ -83,17 +83,17 @@ class EvalConfig:
     seed: int = 0
     log_dir: str = "./log"
     max_batches: Optional[int] = None  # cap for smoke runs
-    n_devices: Optional[int] = None    # mesh size; > 1 raises (not ported)
+    n_devices: Optional[int] = None    # ranks the batch is split over
     synthetic_size: int = 64           # items when dataset == synthetic
 
     # CW-Perturb distance: None/"l2" = the reference's L2, "chamfer" = the
-    # set distance; sp_devices > 1 (its points sharded over a ring mesh)
-    # raises, not ported yet
+    # set distance; sp_devices > 1 shards its points over a ring of that
+    # many ranks
     dist_func: Optional[str] = None
     sp_devices: int = 0
 
-    # population parallelism: R independent restarts of the same batch;
-    # R > 1 raises, not ported yet
+    # population parallelism: R independent restarts of the same batch,
+    # each example's first success kept
     restarts: int = 0
 
     # where the evaluation runs: "cuda" unless the caller asks for "cpu"

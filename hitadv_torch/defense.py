@@ -26,11 +26,15 @@ import torch
 
 from hitadv_torch import resolve_device
 from hitadv_torch.ops import geometry as G
+from hitadv_torch.parallel.shard import own_rows, whole_batch
 
 
 class _PerShape:
     """A draw per cloud shape ``(B, N, C)``: pinned ones, else ``draw(B, N,
-    C)`` the first time the shape comes, kept for every later call."""
+    C)`` the first time the shape comes, kept for every later call. Under
+    a batch sharding (`parallel.shard.sharded`) the draw and its key are
+    the whole batch's, of which each rank takes its rows: the draws then
+    are those of one process, the attack's and the judging's alike."""
 
     def __init__(self, draw: Callable, pinned: Optional[torch.Tensor]):
         self.draw = draw
@@ -40,9 +44,10 @@ class _PerShape:
     def get(self, B: int, N: int, C: int, dev) -> torch.Tensor:
         if self.pinned is not None:
             return self.pinned.to(dev)
-        if (B, N, C) not in self.cache:
-            self.cache[(B, N, C)] = self.draw(B, N, C)
-        return self.cache[(B, N, C)]
+        key = (whole_batch(B), N, C)
+        if key not in self.cache:
+            self.cache[key] = self.draw(*key)
+        return own_rows(self.cache[key])
 
 
 def make_srs(drop_num: int, generator: Optional[torch.Generator] = None, *,

@@ -3,23 +3,40 @@
 Port of `hitadv_tpu/eval.py` (reference `eval.py:21-135`): build the
 victim, the batches and the attack, then run `evaluation.eval_asr` and
 print its metrics. It runs on the card unless ``--device cpu`` is given,
-and raises when asked for CUDA without one.
+and raises when asked for CUDA without one. Every flag of the JAX `eval`
+runs:
 
-The port has every attack of the registry: HiT-ADV, CW-Perturb
-(targeted and untargeted, L2 or ``--dist_func chamfer``), CW-LPIPS,
-CW-kNN and CW-UKNN, the FGM family (FGSM, IFGSM, MIFGSM, PGD, FGSM-RS,
-FGM-L2, IFGM-L2), SaliencyDrop, GeoA3 and GeoA3-Untarget, the Add
-attacks (Add, Add-Cluster, Add-Object), AOF, TAOF and UAEAOF, AdvPC and
-UAdvPC (the autoencoder: ``--ae_checkpoint``, else fitted on the eval's
-clouds and cached under ``HITADV_CACHE_DIR``, else with
-``--ae_fit_steps 0`` a random one); the victims PointNet, DGCNN,
-PointNet++, PCT, PointConv and GeoA3's PointNet; the defenses SRS, SOR
-and jitter, at attack time (``--defense_method``: the attack
-differentiates through it, and the judging sees it too) and at eval time
-(``--eval_defense_method``: the judging alone); and the synthetic
-dataset. The real datasets, restarts and the device meshes raise
-`NotImplementedError` naming the `ROADMAP.md` item that brings them;
-nothing falls back to something else.
+  * the datasets: ``--dataset ModelNet`` (``modelnet40_normal_resampled``
+    txt files, `data.ModelNetDataset`) and ``ShapeNetPart``
+    (`data.PartNormalDataset`) from ``--data_path``, read by
+    ``--num_workers`` loader threads, and ``synthetic``. Without
+    ``--data_path`` a real dataset raises (the JAX `eval` runs
+    synthetic clouds instead);
+  * every attack of the registry: HiT-ADV, CW-Perturb (targeted and
+    untargeted, L2 or ``--dist_func chamfer``), CW-LPIPS, CW-kNN and
+    CW-UKNN, the FGM family (FGSM, IFGSM, MIFGSM, PGD, FGSM-RS, FGM-L2,
+    IFGM-L2), SaliencyDrop, GeoA3 and GeoA3-Untarget, the Add attacks
+    (Add, Add-Cluster, Add-Object), AOF, TAOF and UAEAOF, AdvPC and
+    UAdvPC (the autoencoder: ``--ae_checkpoint``, else fitted on the
+    eval's clouds and cached under ``HITADV_CACHE_DIR``, else with
+    ``--ae_fit_steps 0`` a random one), against the victims PointNet,
+    DGCNN, PointNet++, PCT, PointConv and GeoA3's PointNet;
+  * the defenses SRS, SOR and jitter, at attack time
+    (``--defense_method``: the attack differentiates through it, and the
+    judging sees it too) and at eval time (``--eval_defense_method``: the
+    judging alone);
+  * the parallel modes, each on ranks that `main` starts itself
+    (`parallel.spawn`: one process per device, rank r on ``cuda:r`` over
+    NCCL, or on the CPU over gloo; rank 0 prints): ``--n_devices N``
+    splits each batch over N ranks (`parallel.shard_attack`);
+    ``--restarts R`` runs R independent restarts of each batch and keeps
+    each example's first success (`parallel.population_attack`), over
+    the largest number of the machine's CUDA devices that divides R, or
+    in turn on one; ``--sp_devices D`` with ``--dist_func chamfer``
+    shards CW-Perturb's Chamfer distance over a D-rank ring
+    (`parallel.ring_chamfer`). More ranks than CUDA devices raise (the
+    JAX `eval` takes the devices it finds). Called inside an initialised
+    process group of the right size, `main` runs as this rank of it.
 """
 
 from __future__ import annotations
@@ -28,6 +45,7 @@ import argparse
 import dataclasses
 import itertools
 import os
+import sys
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -37,14 +55,6 @@ from hitadv_torch import resolve_device
 from hitadv_torch.config import EvalConfig, add_config_flags, config_from_args
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a setting that `ROADMAP.md` §1's item titled ``item``
-    brings (named by title: a renumbering of the items leaves it true)."""
-    return NotImplementedError(
-        f"hitadv_torch.eval: {what} is not ported yet (ROADMAP.md §1, "
-        f"{item})")
-
-
 # the FGM family's registry names -> their makers in `attacks`
 _FGM_MAKERS = {"fgsm": "make_fgsm", "ifgsm": "make_ifgsm",
                "mifgsm": "make_mifgsm", "pgd": "make_pgd",
@@ -52,16 +62,53 @@ _FGM_MAKERS = {"fgsm": "make_fgsm", "ifgsm": "make_ifgsm",
                "ifgm-l2": "make_ifgm_l2"}
 
 
-def check_ported(cfg: EvalConfig) -> None:
-    """Raise `NotImplementedError` for every setting that the port does
-    not run yet (every attack of the registry runs)."""
-    if cfg.dataset in ("ModelNet", "ShapeNetPart"):
-        raise _not_ported(f"--dataset {cfg.dataset}", "Data loaders")
-    for flag, value in (("--restarts", cfg.restarts),
-                        ("--n_devices", cfg.n_devices),
-                        ("--sp_devices", cfg.sp_devices)):
-        if value and value > 1:
-            raise _not_ported(flag, "Parallelism")
+# the JAX `eval`'s refusals of the parallel flags together
+# (`hitadv_tpu/eval.py`: `_cw_dist_fn` and `main`)
+RING_AND_BATCH = (
+    "--sp_devices (points sharded over a ring mesh) and"
+    " --n_devices (batch-sharded attack) are mutually"
+    " exclusive: the ring's shard_map closes over its"
+    " own mesh and cannot nest inside the dp-sharded"
+    " program — pick one axis to shard")
+RESTARTS_AND_MESH = (
+    "--restarts shards the restart axis over the mesh and is"
+    " mutually exclusive with --n_devices (batch sharding)"
+    " and --sp_devices (points-sharded ring) — one mesh axis"
+    " per attack program")
+CW_PERTURB = ("cw-perturb", "cw-perturbt", "cw-uperturb")
+
+
+def uses_ring(cfg: EvalConfig) -> bool:
+    """Whether the attack takes CW-Perturb's ring Chamfer distance
+    (``--dist_func chamfer --sp_devices D`` with D > 1)."""
+    name = cfg.attack_type.lower().replace("_", "-")
+    return (name in CW_PERTURB and cfg.dist_func == "chamfer"
+            and (cfg.sp_devices or 0) > 1)
+
+
+def check_parallel_flags(cfg: EvalConfig) -> None:
+    """The JAX `eval`'s `ValueError`s for parallel flags that exclude
+    each other."""
+    batch = (cfg.n_devices or 0) > 1
+    if (cfg.restarts or 0) > 1 and (batch or (cfg.sp_devices or 0) > 1):
+        raise ValueError(RESTARTS_AND_MESH)
+    if uses_ring(cfg) and batch:
+        raise ValueError(RING_AND_BATCH)
+
+
+def mesh_size(cfg: EvalConfig) -> int:
+    """The number of ranks the flags ask for: ``--n_devices``; the ring's
+    ``--sp_devices``; for ``--restarts R``, the largest number of the
+    machine's CUDA devices that divides R (one on the CPU), as the JAX
+    `eval`'s restart mesh; else 1."""
+    check_parallel_flags(cfg)
+    if (cfg.restarts or 0) > 1:
+        have = (torch.cuda.device_count()
+                if torch.device(cfg.device).type == "cuda" else 1)
+        return max(k for k in range(1, have + 1) if cfg.restarts % k == 0)
+    if (cfg.n_devices or 0) > 1:
+        return cfg.n_devices
+    return cfg.sp_devices if uses_ring(cfg) else 1
 
 
 def build_model(cfg: EvalConfig) -> torch.nn.Module:
@@ -95,13 +142,23 @@ def build_model(cfg: EvalConfig) -> torch.nn.Module:
 
 def _cw_dist_fn(cfg: EvalConfig):
     """CW-Perturb's distance: the reference's L2 (None) by default, the
-    Chamfer distance with ``--dist_func chamfer``."""
+    Chamfer distance with ``--dist_func chamfer``, and with
+    ``--sp_devices D`` > 1 the Chamfer distance with the points sharded
+    over the D ranks of the process group (`parallel.ring_chamfer`), the
+    large-N configuration."""
     from hitadv_torch import losses
 
     if cfg.dist_func in (None, "l2"):
         return None
     if cfg.dist_func != "chamfer":
         raise ValueError(f"dist_func {cfg.dist_func!r}")
+    if (cfg.sp_devices or 0) > 1:
+        if (cfg.n_devices or 0) > 1:
+            raise ValueError(RING_AND_BATCH)
+        from hitadv_torch.parallel import make_mesh, ring_chamfer
+
+        sp = make_mesh(cfg.sp_devices)
+        return lambda adv, ori: ring_chamfer(adv, ori, sp)
     return losses.chamfer_dist
 
 
@@ -312,15 +369,36 @@ def default_ae(cfg: EvalConfig) -> torch.nn.Module:
 
 
 def build_batches(cfg: EvalConfig):
-    """The synthetic batches (``--dataset synthetic``), the only dataset
-    the port has."""
-    from hitadv_torch.data import synthetic_batches
+    """``(points [B, N, C], labels [B])`` numpy batches (JAX
+    `build_batches`): ``--dataset ModelNet`` (`data.ModelNetDataset` with
+    ``--use_normals``, ``--num_category``, ``--use_uniform_sample`` and
+    ``--process_data``) or ``ShapeNetPart`` (`data.PartNormalDataset`,
+    normals on) from ``--data_path``, in order through
+    `data.batch_iterator` with ``--num_workers`` threads; or the
+    synthetic batches. A real dataset without ``--data_path`` raises."""
+    from hitadv_torch import data
 
-    if cfg.dataset != "synthetic":
+    if cfg.dataset == "synthetic":
+        n_batches = max(1, cfg.synthetic_size // cfg.batch_size)
+        return data.synthetic_batches(n_batches, cfg.batch_size,
+                                      cfg.num_point, cfg.num_class,
+                                      seed=cfg.seed)
+    if cfg.dataset not in ("ModelNet", "ShapeNetPart"):
         raise ValueError(f"dataset {cfg.dataset!r}")
-    return synthetic_batches(max(1, cfg.synthetic_size // cfg.batch_size),
-                             cfg.batch_size, cfg.num_point, cfg.num_class,
-                             seed=cfg.seed)
+    if cfg.data_path is None:
+        raise ValueError(
+            f"--dataset {cfg.dataset} needs --data_path: the port runs no "
+            "synthetic stand-in for it (ROADMAP.md §3)")
+    if cfg.dataset == "ModelNet":
+        ds = data.ModelNetDataset(
+            cfg.data_path, num_points=cfg.num_point, split="test",
+            use_normals=cfg.use_normals, num_category=cfg.num_category,
+            uniform=cfg.use_uniform_sample, process_data=cfg.process_data)
+    else:
+        ds = data.PartNormalDataset(cfg.data_path, npoints=cfg.num_point,
+                                    split="test", normal_channel=True)
+    return data.batch_iterator(ds, cfg.batch_size, shuffle=False,
+                               num_workers=cfg.num_workers)
 
 
 def parse_args(argv=None) -> Tuple[EvalConfig, argparse.Namespace]:
@@ -354,26 +432,87 @@ def defended(cfg: EvalConfig, model: Callable, dev: torch.device
     return attacked, judged
 
 
-def main(argv=None) -> dict:
+def run(cfg: EvalConfig, args: argparse.Namespace) -> dict:
+    """The evaluation of ``cfg`` in this process: alone, or as a rank of
+    the initialised process group when the flags ask for more than one
+    (`mesh_size`), every rank taking rank 0's batches; only rank 0
+    prints and writes the log and ``--resume`` files."""
+    import torch.distributed as dist
+
+    from hitadv_torch.data import device_put_batches
     from hitadv_torch.evaluation import eval_asr
+    from hitadv_torch.parallel import (
+        make_mesh,
+        population_attack,
+        shard_attack,
+    )
     from hitadv_torch.utils import EvalProgress
 
-    cfg, args = parse_args(argv)
-    check_ported(cfg)
     dev = resolve_device(cfg.device)
+    n, group = mesh_size(cfg), None
+    if n > 1:
+        if not dist.is_initialized() or dist.get_world_size() != n:
+            raise RuntimeError(
+                f"hitadv_torch.eval: the flags ask for {n} ranks; call "
+                "main, which starts them, or run inside a process group "
+                "of that size")
+        group = make_mesh()
+    lead = group is None or dist.get_rank(group) == 0
 
     model = build_model(cfg)
     logits_fn, eval_logits_fn = defended(cfg, model, dev)
+    # rank 0 builds its attack first: an AE it fits and caches is then
+    # loaded by the others, never read while it is being written
+    if not lead:
+        dist.barrier(group)
     attack = build_attack(cfg, logits_fn, model)
+    if lead and group is not None:
+        dist.barrier(group)
+    if (cfg.restarts or 0) > 1:
+        attack = population_attack(attack, cfg.restarts, group)
+    elif (cfg.n_devices or 0) > 1:
+        attack = shard_attack(attack, group)
     batches = build_batches(cfg)
     if cfg.max_batches:
         batches = itertools.islice(batches, cfg.max_batches)
-    progress = EvalProgress(args.resume) if args.resume else None
+    batches = device_put_batches(batches, dev, group)
+    progress = (EvalProgress(args.resume, write=lead) if args.resume
+                else None)
     metrics = eval_asr(eval_logits_fn, attack, batches, seed=cfg.seed,
-                       uniform_k=cfg.k, log_dir=cfg.log_dir,
+                       uniform_k=cfg.k, log_dir=cfg.log_dir if lead else None,
                        progress=progress, device=dev)
-    print({k: round(float(v), 6) for k, v in metrics.items()})
+    if lead:
+        print({k: round(float(v), 6) for k, v in metrics.items()})
     return metrics
+
+
+def _run_rank(rank: int, argv) -> dict:
+    """A rank started by `main`: on ``cuda:rank`` when the flags ask for
+    the card."""
+    cfg, args = parse_args(argv)
+    if torch.device(cfg.device).type == "cuda":
+        torch.cuda.set_device(rank)
+        cfg.device = f"cuda:{rank}"
+    return run(cfg, args)
+
+
+def main(argv=None) -> dict:
+    """The evaluation of the command line ``argv``; where its flags ask
+    for more than one rank and no process group is initialised, on that
+    many new processes (`parallel.spawn`), returning rank 0's metrics."""
+    import torch.distributed as dist
+
+    from hitadv_torch.parallel import mesh
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cfg, args = parse_args(argv)
+    n = mesh_size(cfg)
+    if n > 1 and not dist.is_initialized():
+        resolve_device(cfg.device)
+        mesh.check_devices(n, cfg.device)
+        return mesh.spawn(_run_rank, n, (argv,),
+                          backend=mesh.backend_for(cfg.device))
+    return run(cfg, args)
 
 
 if __name__ == "__main__":

@@ -164,7 +164,7 @@ def uniform_loss(adv_pc: torch.Tensor,
     from the uniform spacing."""
     B, n, _ = adv_pc.shape
     npoint = int(n * 0.05)
-    fps_idx = G.farthest_point_sample(adv_pc, npoint, start_idx=0)
+    fps_idx = G.farthest_point_sample(adv_pc, npoint)
     new_xyz = G.index_points(adv_pc, fps_idx)                # [B, S, 3]
 
     disks = uniform_disks(n, percentages, radius)

@@ -20,7 +20,7 @@ The rest is plain PyTorch, as it is plain XLA in the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -170,20 +170,17 @@ def knn_indices(points: torch.Tensor, k: int
 # ---------------------------------------------------------------------------
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
-                          generator: Optional[torch.Generator] = None,
-                          start_idx: int = 0) -> torch.Tensor:
+                          start: Union[int, torch.Tensor] = 0
+                          ) -> torch.Tensor:
     """Greedy max-min sampling ``[B, N, 3] -> [B, npoint]`` int32
-    (reference :460-509). With a ``generator`` each cloud starts at a
-    uniform random index drawn from it (the attack convention);
-    otherwise every cloud starts at ``start_idx``."""
+    (reference :460-509). Each cloud starts at its entry of ``start``, a
+    ``[B]`` int32 tensor (the attacks draw it uniformly), or every cloud
+    at the index ``start``."""
     B, N, _ = xyz.shape
-    if generator is not None:
-        start = torch.randint(0, N, (B,), generator=generator,
-                              device=xyz.device, dtype=torch.int32)
-    else:
-        if not 0 <= start_idx < N:
-            raise ValueError(f"start_idx={start_idx} outside [0, {N})")
-        start = torch.full((B,), start_idx, dtype=torch.int32,
+    if not torch.is_tensor(start):
+        if not 0 <= start < N:
+            raise ValueError(f"start={start} outside [0, {N})")
+        start = torch.full((B,), start, dtype=torch.int32,
                            device=xyz.device)
     return K.fps(xyz.contiguous(), npoint, start)
 

@@ -12,10 +12,12 @@ class EvalProgress:
     """The batch cursor and the per-batch scalar accumulators of a sweep,
     persisted after every batch so that `evaluation.eval_asr` can restart
     a long sweep after preemption. Only load files this program wrote:
-    unpickling runs code."""
+    unpickling runs code. With ``write=False`` it reads the file and
+    never writes it (the ranks of a sharded sweep other than rank 0)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, write: bool = True):
         self.path = path
+        self.write = write
         self.state: Dict[str, Any] = {"next_batch": 0, "acc": {}}
         if os.path.isfile(path):
             with open(path, "rb") as f:
@@ -32,6 +34,8 @@ class EvalProgress:
         """Record that batches up to ``batch_index`` are done, atomically
         (a reader sees the old file or the new one)."""
         self.state = {"next_batch": batch_index + 1, "acc": dict(acc)}
+        if not self.write:
+            return
         tmp = self.path + ".tmp"
         with open(tmp, "wb") as f:
             pickle.dump(self.state, f)

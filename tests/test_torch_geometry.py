@@ -93,17 +93,23 @@ def test_knn_indices_drop_self():
 def test_farthest_point_sample_fixed_start(N, npoint, start):
     x = _cloud(9, 2, N)
     want = JG.farthest_point_sample(jnp.asarray(x), npoint, start_idx=start)
-    got = G.farthest_point_sample(_t(x), npoint, start_idx=start)
+    got = G.farthest_point_sample(_t(x), npoint, start)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_farthest_point_sample_generator_start_is_seeded():
+    """A seeded draw of per-cloud starts (the attacks' convention) gives
+    the same samples twice, each beginning at its cloud's start."""
     x = _t(_cloud(10, 3, 100))
-    a = G.farthest_point_sample(x, 16, generator=torch.Generator()
-                                .manual_seed(3))
-    b = G.farthest_point_sample(x, 16, generator=torch.Generator()
-                                .manual_seed(3))
+
+    def start():
+        return torch.randint(0, 100, (3,), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(3))
+
+    a = G.farthest_point_sample(x, 16, start())
+    b = G.farthest_point_sample(x, 16, start())
     assert torch.equal(a, b)
+    assert torch.equal(a[:, 0], start())
     assert a.dtype == torch.int32 and a.shape == (3, 16)
 
 
