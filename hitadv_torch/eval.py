@@ -117,7 +117,7 @@ def build_model(cfg: EvalConfig) -> torch.nn.Module:
     parameter tree (``.pkl``) or the reference's torch checkpoint; bf16
     activations with ``--bf16``."""
     from hitadv_torch import models
-    from hitadv_torch.convert import params_from_numpy
+    from hitadv_torch.convert import params_from_numpy, tree_from_torch
     from hitadv_torch.utils import checkpoint as ckpt
 
     dev = resolve_device(cfg.device)
@@ -131,12 +131,7 @@ def build_model(cfg: EvalConfig) -> torch.nn.Module:
     if cfg.checkpoint.endswith((".pkl", ".pickle")):
         tree = ckpt.load_params(cfg.checkpoint)
     else:
-        module = {"pointnet": models.pointnet, "pointnet++": models.pointnet2,
-                  "dgcnn": models.dgcnn, "pct": models.pct,
-                  "pointconv": models.pointconv,
-                  "geoa3_pointnet": models.geoa3_pointnet}[cfg.model]
-        tree = ckpt.convert_state_dict(
-            ckpt.load_torch_state_dict(cfg.checkpoint), module.TORCH_SPEC)
+        tree = tree_from_torch(cfg.model, cfg.checkpoint)
     return cls(params=params_from_numpy(tree, dev), **kw)
 
 

@@ -3,6 +3,7 @@
 from hitadv_torch.losses.adversarial import (  # noqa: F401
     cross_entropy_loss,
     logits_adv_loss,
+    smoothed_cross_entropy_loss,
     untargeted_logits_adv_loss,
 )
 from hitadv_torch.losses.clip import (  # noqa: F401

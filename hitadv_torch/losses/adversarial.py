@@ -43,3 +43,17 @@ def cross_entropy_loss(logits: torch.Tensor,
     """Per-example cross-entropy."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(logp, 1, targets.long()[:, None])[:, 0]
+
+
+def smoothed_cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                                eps: float = 0.2) -> torch.Tensor:
+    """Per-example label-smoothed cross-entropy, the DGCNN/PCT training
+    loss (reference `model/pct_utils.py:6-24`, ``cal_loss`` with
+    smoothing): the target class weighted ``1 - eps``, each other class
+    ``eps / (K - 1)``."""
+    logits = logits.float()
+    K = logits.shape[-1]
+    one_hot = torch.nn.functional.one_hot(targets.long(), K).to(
+        logits.dtype)
+    soft = one_hot * (1.0 - eps) + (1.0 - one_hot) * eps / (K - 1)
+    return -torch.sum(soft * torch.log_softmax(logits, dim=-1), dim=-1)

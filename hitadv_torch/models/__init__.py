@@ -1,7 +1,8 @@
 """Victim models (PointNet, DGCNN, PointNet++ (SSG), PCT, PointConv and
 GeoA3's PointNet are ported so far) and AdvPC's autoencoder."""
 
-from typing import Dict, Type
+import sys
+from typing import Dict, List, Type
 
 from torch import nn
 
@@ -27,3 +28,14 @@ def get_model(name: str) -> Type[nn.Module]:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def names() -> List[str]:
+    """The registered victims' names, sorted."""
+    return sorted(_REGISTRY)
+
+
+def torch_spec(name: str) -> Dict:
+    """The ``TORCH_SPEC`` of victim ``name``: how the reference's torch
+    checkpoint of it maps onto the tree (`utils.checkpoint`)."""
+    return sys.modules[get_model(name).__module__].TORCH_SPEC

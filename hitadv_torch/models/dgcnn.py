@@ -1,4 +1,4 @@
-"""DGCNN classifier, eval mode.
+"""DGCNN classifier.
 
 Port of `hitadv_tpu/models/dgcnn.py` (reference `model/dgcnn_cls.py`):
 four EdgeConv blocks over a dynamic kNN graph in feature space, the
@@ -11,8 +11,12 @@ x_i])`` is ``leaky(max_j y_j + z_i)`` for two per-point projections y and
 z, so the ``[B, N, k, 2C]`` edge tensor never exists. The kNN of each
 block is `geometry.knn_idx` (self included, as the reference's
 `model/dgcnn_cls.py:7-13`), the neighbour max is `geometry.graph_max_pool`:
-both are kernels on CUDA. The train-mode edge-grid form
-(`get_graph_feature`) waits for the port of `train.py`.
+both are kernels on CUDA. Inside `functional.bn_training` (the trainer)
+each EdgeConv takes the reference's edge-grid form instead (JAX :129-145):
+the kNN, the neighbour gather (`get_graph_feature`, a row gather and, in
+the backward, its row scatter), the linear and batch-statistics BN over
+the whole ``[B, N, k, C']`` grid, LeakyReLU and the max over k. Like the
+JAX package, it has no dropout.
 
 The parameters are the reference's tree (``conv1``..``conv5``,
 ``bn1``..``bn7``, ``linear1``..``linear3``; ``w`` as ``[Cin, Cout]``),
@@ -35,8 +39,9 @@ from hitadv_torch.ops import geometry as G
 
 @dataclass(frozen=True)
 class DGCNNConfig:
-    """The reference's architecture knobs; its dropout is the identity in
-    eval mode, the only mode ported."""
+    """The reference's architecture knobs. The JAX package's ``dropout``
+    field is read by nothing (no mode of it drops out), so it is not
+    ported."""
     k: int = 20
     emb_dims: int = 1024
 
@@ -59,6 +64,22 @@ def init_params(num_classes: int = 40, cfg: DGCNNConfig = DGCNNConfig(), *,
     p["bn7"] = F.batchnorm_init(256, device=device)
     p["linear3"] = F.linear_init(256, num_classes, **kw)
     return p
+
+
+def get_graph_feature(x: torch.Tensor, k: int, concat: bool = True):
+    """Edge features over the feature-space kNN graph, self included
+    (JAX :35-57, reference `model/dgcnn_cls.py:16-43`): ``[B, N, C] ->
+    [B, N, k, 2C]``, ``concat(x_j - x_i, x_i)``. With ``concat=False``
+    the two parts ``(x_j - x_i, x_i [B, N, 1, C])`` for `F.linear_parts`,
+    whose sum broadcasts the centre. The kNN runs on the detached
+    features: its indices carry no gradient."""
+    idx = G.knn_idx(x, x, k)                                 # [B, N, k]
+    neighbors = G.index_points(x, idx)                       # [B, N, k, C]
+    center = x[:, :, None, :]
+    if not concat:
+        return neighbors - center, center
+    return torch.cat([neighbors - center, center.expand_as(neighbors)],
+                     dim=-1)
 
 
 def edge_conv_fused(p_conv: Mapping, p_bn: Mapping, h: torch.Tensor, k: int,
@@ -120,12 +141,20 @@ class DGCNN(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The reference's ``apply`` (JAX :124-158) in eval mode."""
+        """The reference's ``apply`` (JAX :124-158)."""
         p, cd = self.params, self.compute_dtype
         feats = []
         h = x
         for i in range(1, 5):
-            h = edge_conv_fused(p[f"conv{i}"], p[f"bn{i}"], h, self.k, cd)
+            if F.bn_is_training():
+                # batch statistics over the whole edge grid, as torch's
+                e = get_graph_feature(h, self.k, concat=False)
+                e = F.leaky_relu(F.linear_bn(p[f"conv{i}"], p[f"bn{i}"], e,
+                                             cd))
+                h = torch.amax(e, dim=2)                     # [B, N, C']
+            else:
+                h = edge_conv_fused(p[f"conv{i}"], p[f"bn{i}"], h, self.k,
+                                    cd)
             feats.append(h)
         h = torch.cat(feats, dim=-1)                         # [B, N, 512]
         h = F.leaky_relu(F.linear_bn(p["conv5"], p["bn5"], h, cd))

@@ -1,4 +1,4 @@
-"""GeoA3's PointNet variant, eval mode (port of
+"""GeoA3's PointNet variant (port of
 `hitadv_tpu/models/geoa3_pointnet.py`, reference `model/GeoA3_PN.py:
 61-189`): two transform nets (K = 3 and K = 64; BN eps 1e-3; ``fc3``
 starts as zeros with the identity as its bias), the conv stack
@@ -10,7 +10,9 @@ The max pools are `torch.amax`, whose gradient splits evenly among tied
 maxima as jnp.max's does (after a ReLU ties at 0 are common; `torch.max`
 over a dim would give all of it to one point). This victim runs no
 max-linear kernel: like the reference, it takes the conv and then the
-max.
+max. Inside `functional.bn_training` (the trainer) every BN, the one
+after the kernel-3 ``conv5`` too, normalises with batch statistics at the
+model's own eps.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""PCT (Point Cloud Transformer) classifier, eval mode.
+"""PCT (Point Cloud Transformer) classifier.
 
 Port of `hitadv_tpu/models/pct.py` (reference `model/pct_cls.py` +
 `model/pct_utils.py`): the 3 -> 64 -> 64 embedding, two kNN-32 grouping
@@ -22,10 +22,14 @@ as they are plain XLA in the reference: energy and attention in f32.
 
 The parameters are the reference's tree (``conv1``, ``bn1``, ...,
 ``gather0``/``gather1``, ``sa1``..``sa4`` with ``qk_conv``, ...,
-``linear3``). The reference's ``PCTConfig`` holds only the dropout rate,
-the identity in eval mode, so it is not ported. The train-mode branch
-and ``TORCH_SPEC`` wait for the port of `train.py` and
-`utils/checkpoint.py`.
+``linear3``). The JAX package's ``PCTConfig`` holds only a dropout
+rate that nothing reads, so it is not ported. Inside
+`functional.bn_training` (the trainer) each grouping stage takes the
+reference's formulation instead (JAX :148-157):
+`geometry.sample_and_group_knn` (row gathers of the centres and the
+neighbours' features, the parts left unconcatenated) and `Local_op`
+with batch-statistics BN over the whole group grid; ``conv_fuse`` and its
+max-pool are then the plain composition (`functional.linear_bn_max`).
 """
 
 from __future__ import annotations
@@ -79,6 +83,15 @@ def init_params(num_classes: int = 40, *, generator: torch.Generator,
     p["bn7"] = F.batchnorm_init(256, device=device)
     p["linear3"] = F.linear_init(256, num_classes, **kw)
     return p
+
+
+def _local_op_apply(p: Mapping, x, compute_dtype=None) -> torch.Tensor:
+    """`Local_op` over grouped features ``[B, S, ns, D]`` (or their
+    parts) -> ``[B, S, C]``: two conv-BN-ReLU layers, the max over ns
+    (JAX :41-48, reference `model/pct_cls.py:6-23`)."""
+    h = F.relu(F.linear_bn(p["conv1"], p["bn1"], x, compute_dtype))
+    h = F.relu(F.linear_bn(p["conv2"], p["bn2"], h, compute_dtype))
+    return F.max_mid(h)
 
 
 def _local_op_fused(p: Mapping, points: torch.Tensor, fps_idx: torch.Tensor,
@@ -150,20 +163,28 @@ class PCT(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The reference's ``pct.apply`` (JAX :136-194) in eval mode."""
+        """The reference's ``pct.apply`` (JAX :136-194)."""
         p, cd = self.params, self.compute_dtype
         h = F.relu(F.linear_bn(p["conv1"], p["bn1"], x, cd))
         h = F.relu(F.linear_bn(p["conv2"], p["bn2"], h, cd))   # [B, N, 64]
-        fps_idx = G.farthest_point_sample(x, 512)
-        new_xyz = G.index_points(x, fps_idx)
-        idx = G.knn_point(32, x, new_xyz)
-        feat0 = _local_op_fused(p["gather0"], h, fps_idx, idx,
-                                cd)                          # [B, 512, 128]
-        fps_idx = G.farthest_point_sample(new_xyz, 256)
-        xyz2 = G.index_points(new_xyz, fps_idx)
-        idx = G.knn_point(32, new_xyz, xyz2)
-        feat1 = _local_op_fused(p["gather1"], feat0, fps_idx, idx,
-                                cd)                          # [B, 256, 256]
+        if F.bn_is_training():
+            new_xyz, grouped = G.sample_and_group_knn(512, 32, x, h,
+                                                      concat=False)
+            feat0 = _local_op_apply(p["gather0"], grouped, cd)
+            _, grouped = G.sample_and_group_knn(256, 32, new_xyz, feat0,
+                                                concat=False)
+            feat1 = _local_op_apply(p["gather1"], grouped, cd)
+        else:
+            fps_idx = G.farthest_point_sample(x, 512)
+            new_xyz = G.index_points(x, fps_idx)
+            idx = G.knn_point(32, x, new_xyz)
+            feat0 = _local_op_fused(p["gather0"], h, fps_idx, idx,
+                                    cd)                      # [B, 512, 128]
+            fps_idx = G.farthest_point_sample(new_xyz, 256)
+            xyz2 = G.index_points(new_xyz, fps_idx)
+            idx = G.knn_point(32, new_xyz, xyz2)
+            feat1 = _local_op_fused(p["gather1"], feat0, fps_idx, idx,
+                                    cd)                      # [B, 256, 256]
         h = F.relu(F.linear_bn(p["pt_conv1"], p["pt_bn1"], feat1, cd))
         h = F.relu(F.linear_bn(p["pt_conv2"], p["pt_bn2"], h, cd))
         xs = []

@@ -1,4 +1,4 @@
-"""PointConv (density-weighted SSG) classifier, eval mode.
+"""PointConv (density-weighted SSG) classifier.
 
 Port of `hitadv_tpu/models/pointconv.py` (reference `model/pointconv.py`
 + `util/pointconv_util.py`): three density set-abstraction stages (512
@@ -21,9 +21,13 @@ both directions.
 
 The parameters are the reference's tree (``sa1``..``sa3`` each with
 ``mlp``, ``weightnet``, ``densitynet`` as ``conv{i}``/``bn{i}`` stacks,
-``linear``, ``bn_linear``; ``fc1``..``fc3``, ``bn1``, ``bn2``). The
-train-mode branch and ``TORCH_SPEC`` wait for the port of `train.py` and
-`utils/checkpoint.py`.
+``linear``, ``bn_linear``; ``fc1``..``fc3``, ``bn1``, ``bn2``). Inside
+`functional.bn_training` (the trainer) the sampled stages take the
+reference's unfused formulation instead (JAX :172-203): FPS, the kNN,
+one row gather of ``[xyz | inverse density | features]`` (the features
+in it when they share xyz's dtype), then the stage MLP on the two parts
+and `WeightNet` on the grouped offsets, each with batch-statistics BN
+over the whole group grid.
 """
 
 from __future__ import annotations
@@ -102,11 +106,32 @@ def _grouped_fused(p: Mapping, stage: PCStage, xyz: torch.Tensor,
     return new_xyz, h, wn_h, g[..., C1 + 8]
 
 
+def _grouped_plain(p: Mapping, stage: PCStage, xyz: torch.Tensor,
+                   points: torch.Tensor, inv_density: torch.Tensor, cd):
+    """A sampled stage's groups in the reference's order (JAX
+    :172-203): (new_xyz ``[B, S, 3]``, stage-MLP output ``[B, S, ns,
+    C']``, WeightNet's output ``[B, S, ns, 16]``, inverse density ``[B,
+    S, ns]``). xyz, the inverse density and (dtype permitting) the
+    features share the kNN indices, so one gather takes them all."""
+    fps_idx = G.farthest_point_sample(xyz, stage.npoint)
+    new_xyz = G.index_points(xyz, fps_idx)                   # [B, S, 3]
+    idx = G.knn_point(stage.nsample, xyz, new_xyz)           # [B, S, ns]
+    merge_points = points.dtype == xyz.dtype
+    cols = [xyz, inv_density[..., None]] + ([points] if merge_points else [])
+    grouped = G.index_points(torch.cat(cols, dim=-1), idx)   # [B,S,ns,4(+D)]
+    grouped_xyz = grouped[..., :3] - new_xyz[:, :, None, :]
+    grouped_points = (grouped[..., 4:] if merge_points
+                      else G.index_points(points, idx))
+    h = F.mlp_apply(p["mlp"], (grouped_xyz, grouped_points), cd)
+    weights = F.mlp_apply(p["weightnet"], grouped_xyz, cd)
+    return new_xyz, h, weights, grouped[..., 3]
+
+
 def _stage_apply(p: Mapping, stage: PCStage, xyz: torch.Tensor,
                  points: torch.Tensor, compute_dtype=None):
-    """One eval-mode density set abstraction: xyz ``[B, N, 3]``, points
-    ``[B, N, D]`` -> (new_xyz ``[B, S, 3]``, features ``[B, S, C']``)
-    (JAX :106-224)."""
+    """One density set abstraction: xyz ``[B, N, 3]``, points ``[B, N,
+    D]`` -> (new_xyz ``[B, S, 3]``, features ``[B, S, C']``) (JAX
+    :106-224)."""
     cd = compute_dtype
     B, N, _ = xyz.shape
     inv_density = 1.0 / G.kde_density(xyz, stage.bandwidth)  # [B, N] f32
@@ -116,6 +141,9 @@ def _stage_apply(p: Mapping, stage: PCStage, xyz: torch.Tensor,
         h = F.mlp_apply(p["mlp"], (grouped_xyz, points[:, None]), cd)
         weights = F.mlp_apply(p["weightnet"], grouped_xyz, cd)
         grouped_density = inv_density.reshape(B, 1, N)
+    elif F.bn_is_training():
+        new_xyz, h, weights, grouped_density = _grouped_plain(
+            p, stage, xyz, points, inv_density, cd)
     else:
         new_xyz, h, wn_h, grouped_density = _grouped_fused(
             p, stage, xyz, points, inv_density, cd)

@@ -1,4 +1,4 @@
-"""PointNet classifier with its spatial and feature transforms, eval mode.
+"""PointNet classifier with its spatial and feature transforms.
 
 Port of `hitadv_tpu/models/pointnet.py` (reference `model/pointnet_cls.py`
 + `model/pointnet_utils.py`): STN3d, STNkd, the 64/128/1024 encoder and
@@ -10,7 +10,9 @@ The parameters are the reference's tree (``stn``, ``fstn``, ``conv1``,
 nested ``nn.ModuleDict``/``nn.ParameterDict``s so that the functional
 layers index them as they index the JAX pytree. They do not require
 grad: the model is a frozen victim, and the fused max-pool then skips
-its weight gradients.
+its weight gradients; the trainer (`hitadv_torch.train`) asks for them
+while it steps. Inside `functional.bn_training` every BN takes batch
+statistics and the conv + max-pools their plain composition.
 """
 
 from __future__ import annotations

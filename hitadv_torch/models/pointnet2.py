@@ -1,4 +1,4 @@
-"""PointNet++ SSG classifier, eval mode.
+"""PointNet++ SSG classifier.
 
 Port of `hitadv_tpu/models/pointnet2.py` (reference
 `model/pointnet2_cls_ssg.py` + `model/pointnet2_utils.py:162-203`): three
@@ -18,9 +18,12 @@ query and the grouped gather are kernels on CUDA, in both directions.
 
 The parameters are the reference's tree (``sa1``..``sa3`` with
 ``conv{i}``/``bn{i}``, ``fc1``..``fc3``, ``bn1``, ``bn2``; ``w`` as
-``[Cin, Cout]``). The train-mode branch (batch-statistics BN over the
-grouped grid) and ``TORCH_SPEC`` wait for the port of `train.py` and
-`utils/checkpoint.py`.
+``[Cin, Cout]``). Inside `functional.bn_training` (the trainer) the
+sampled stages take the reference's formulation instead (JAX :64-76):
+`geometry.sample_and_group` (FPS, the ball query, row gathers of xyz and
+features, the two parts left unconcatenated for `linear_parts`), the MLP
+with batch-statistics BN over the whole group grid, and the neighbour
+max.
 """
 
 from __future__ import annotations
@@ -71,15 +74,20 @@ def init_params(num_classes: int = 40, normal_channel: bool = False, *,
 
 def _sa_apply(params: Mapping, cfg: SAConfig, xyz: torch.Tensor,
               points: Optional[torch.Tensor], compute_dtype=None):
-    """One eval-mode set-abstraction stage: xyz ``[B, N, 3]``, points
-    ``[B, N, D]`` or None -> (new_xyz ``[B, S, 3]``, pooled ``[B, S,
-    C']``) (JAX :45-100)."""
+    """One set-abstraction stage: xyz ``[B, N, 3]``, points ``[B, N, D]``
+    or None -> (new_xyz ``[B, S, 3]``, pooled ``[B, S, C']``) (JAX
+    :45-100)."""
     cd = compute_dtype
-    if cfg.group_all:
-        new_xyz, new_points = G.sample_and_group_all(xyz, points,
-                                                     concat=False)
+    if cfg.group_all or F.bn_is_training():
+        if cfg.group_all:
+            new_xyz, new_points = G.sample_and_group_all(xyz, points,
+                                                         concat=False)
+        else:
+            new_xyz, new_points = G.sample_and_group(
+                cfg.npoint, cfg.radius, cfg.nsample, xyz, points,
+                concat=False)
         h = F.mlp_apply(params, new_points, cd)
-        return new_xyz, F.max_mid(h)                         # [B, 1, C']
+        return new_xyz, F.max_mid(h)                         # [B, S, C']
     fps_idx = G.farthest_point_sample(xyz, cfg.npoint)
     new_xyz = G.index_points(xyz, fps_idx)                   # [B, S, 3]
     idx = G.query_ball_point(cfg.radius, cfg.nsample, xyz, new_xyz)

@@ -1,11 +1,17 @@
-"""Functional layers on parameter dicts, eval mode.
+"""Functional layers on parameter dicts.
 
-Port of `hitadv_tpu/nn/functional.py` for inference: pointwise conv
-(= linear), the general 1D conv over the point axis, eval-mode BN, BN
-folded into the preceding linear, the STN-transform fold, ReLU and
-LeakyReLU, the conv-BN-act stack, the neighbour max with the reference's
-tie-splitting gradient, and the fused conv + global max-pool over the
-max-linear kernels.
+Port of `hitadv_tpu/nn/functional.py`: pointwise conv (= linear), the
+general 1D conv over the point axis, BN, BN folded into the preceding
+linear, the STN-transform fold, ReLU and LeakyReLU, the conv-BN-act
+stack, the neighbour max with the reference's tie-splitting gradient, and
+the fused conv + global max-pool over the max-linear kernels.
+
+BN runs in eval mode (running statistics, folded where it follows a
+linear) unless a `bn_training` context is open: then every BN normalises
+with its batch statistics and records them, and the layers that fold or
+fuse in eval mode take the explicit composition (the trainer's forward,
+`hitadv_torch.train`). Nothing else opens that context, so a model
+built for an attack runs eval-mode BN whatever its ``training`` flag.
 
 Parameters are mappings of tensors in the reference's layout: a linear or
 1x1-conv is ``{"w": [Cin, Cout], "b": [Cout]}``, a BN is
@@ -186,10 +192,59 @@ def conv1d(p: Params, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return y
 
 
+# While a `bn_training` context is open: the list `batchnorm` appends
+# ``(p, batch_mean, batch_var_unbiased)`` to, one entry a BN call
+_BN_TRAINING_RECORDS = None
+
+
+class bn_training:
+    """Context manager: train-mode BN, recording batch statistics
+    (reference :170-198).
+
+    Torch semantics (BatchNorm1d/2d ``train()``): the forward normalises
+    with the *biased* batch variance; the recorded variance is the
+    *unbiased* one, ``count / (count - 1)`` times it, so that a trainer
+    applies ``new = (1 - m) old + m batch``. Each record holds the BN's
+    parameter mapping itself, so the trainer updates that one."""
+
+    def __init__(self, records: list):
+        self.records = records
+
+    def __enter__(self):
+        global _BN_TRAINING_RECORDS
+        self._prev = _BN_TRAINING_RECORDS
+        _BN_TRAINING_RECORDS = self.records
+        return self.records
+
+    def __exit__(self, *exc):
+        global _BN_TRAINING_RECORDS
+        _BN_TRAINING_RECORDS = self._prev
+        return False
+
+
+def bn_is_training() -> bool:
+    """True inside a `bn_training` context: the models whose eval form
+    folds or fuses BN take their explicit form then."""
+    return _BN_TRAINING_RECORDS is not None
+
+
 def batchnorm(p: Params, x: torch.Tensor, compute_dtype=None,
               eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BN over the trailing channel axis, in f32, the result in
-    ``compute_dtype`` (reference :200-226)."""
+    """BN over the trailing channel axis, in f32, the result in
+    ``compute_dtype`` (reference :200-226): with the running statistics,
+    or inside `bn_training` with the batch's, taken over every axis but
+    the last and recorded."""
+    if _BN_TRAINING_RECORDS is not None:
+        xf = x.float()
+        axes = tuple(range(x.dim() - 1))
+        bm = torch.mean(xf, dim=axes)
+        bv = torch.var(xf, dim=axes, correction=0)          # the forward's
+        count = math.prod(x.shape[:-1])
+        unbiased = bv * (count / max(count - 1, 1))         # the recorded
+        _BN_TRAINING_RECORDS.append((p, bm.detach(), unbiased.detach()))
+        inv = torch.rsqrt(bv + eps)
+        return _cast((xf - bm) * (inv * p["scale"]) + p["bias"],
+                     compute_dtype)
     inv = torch.rsqrt(p["var"] + eps)
     y = (x.float() - p["mean"]) * (inv * p["scale"]) + p["bias"]
     return _cast(y, compute_dtype)
@@ -208,7 +263,11 @@ def fold_bn(lin: Params, bn: Params, eps: float = 1e-5
 
 def linear_bn(lin: Params, bn: Params, x: torch.Tensor,
               compute_dtype=None, eps: float = 1e-5) -> torch.Tensor:
-    """linear then eval-mode BN, the BN folded into the product."""
+    """linear then BN: in eval mode the BN folded into the product; inside
+    `bn_training` the two explicitly, BN on batch statistics."""
+    if bn_is_training():
+        return batchnorm(bn, linear(lin, x, compute_dtype), compute_dtype,
+                         eps)
     w, b = fold_bn(lin, bn, eps)
     return linear({"w": w, "b": b}, x, compute_dtype)
 
@@ -218,7 +277,12 @@ def linear_bn_pre(lin: Params, bn: Params, pre: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """``bn(linear(lin, x @ pre))`` with the per-example ``[k, k]``
     transform folded into the weight: ``x @ (pre @ W) + b`` (the PointNet
-    STN pattern)."""
+    STN pattern). Inside `bn_training` the explicit composition: the
+    transform in f32, then `linear_bn`'s train form."""
+    if bn_is_training():
+        h = torch.matmul(x.float(), pre.float())
+        return batchnorm(bn, linear(lin, h, compute_dtype), compute_dtype,
+                         eps)
     w, b = fold_bn(lin, bn, eps)
     wb = torch.matmul(pre.float(), w)                        # [B, k, Cout]
     if compute_dtype is not None:
@@ -230,7 +294,8 @@ def linear_bn_pre(lin: Params, bn: Params, pre: torch.Tensor,
 def mlp_apply(params: Mapping[str, Params], x, compute_dtype=None,
               start: int = 0) -> torch.Tensor:
     """The conv-BN-ReLU stack ``conv{i}``/``bn{i}`` with each eval BN
-    folded into its linear (reference :444-470). ``start`` skips the
+    folded into its linear, or inside `bn_training` each BN explicit on
+    batch statistics (reference :444-470). ``start`` skips the
     first layers (a caller that fused layer 0 into its gather passes 1,
     and ``x`` is then that layer's activated output). ``x`` may be a
     tuple of parts for `linear_parts`."""
@@ -277,7 +342,15 @@ def linear_bn_max(lin: Params, bn: Params, x: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """``max_n bn(x @ W + b)[:, n, :]`` -> ``[B, C]`` f32: the conv +
     global max-pool bottleneck (PointNet conv3 + torch.max), fused. The
-    folded weight is cast to x's dtype; the bias stays f32."""
+    folded weight is cast to x's dtype; the bias stays f32.
+
+    Inside `bn_training` the plain composition instead (reference :369),
+    ``amax(linear_bn(...), dim=1)`` in x's dtype: BN needs the batch
+    statistics of the whole ``[B, N, C]`` product, and `torch.amax`'s
+    gradient splits among ties as jnp.max's does."""
+    if bn_is_training():
+        cd = None if x.dtype == torch.float32 else x.dtype
+        return torch.amax(linear_bn(lin, bn, x, cd, eps), dim=1)
     w, b = fold_bn(lin, bn, eps)
     return _MaxLinear.apply(x.contiguous(), w.to(x.dtype).contiguous(),
                             b.float().contiguous())

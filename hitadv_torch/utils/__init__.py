@@ -1,4 +1,6 @@
-"""Utilities of the evaluation: the logger, resumable sweeps, checkpoints."""
+"""Utilities: the logger and meters, checkpoints, experiment
+bookkeeping and resumable sweeps, timing and tracing, and mesh and
+point-cloud files."""
 
 from hitadv_torch.utils.logging import timestamped_logger  # noqa: F401
 from hitadv_torch.utils.training_aux import EvalProgress  # noqa: F401
