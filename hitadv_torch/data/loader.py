@@ -20,7 +20,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from hitadv_torch.parallel import comm
+from hitadv_torch.parallel.mesh import put_batch
 
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = False,
@@ -91,15 +91,16 @@ def device_put_batches(batches: Iterable, device="cuda", group=None):
     """Copy each ``(points, labels)`` batch to ``device`` as it is yielded
     (f32 points, int64 labels).
 
-    With a process ``group`` (`parallel.mesh`), every rank iterates its
-    own loader and takes rank 0's batch (a broadcast): the ranks attack
-    one global batch, even where a threaded loader's draws depend on
-    thread timing (`ROADMAP.md` §3). The JAX package places each batch on
-    a device mesh here instead."""
+    With a process ``group`` (`parallel.mesh`), each batch is placed for
+    `shard_attack` by `put_batch`: on one host every rank iterates its own
+    loader and takes rank 0's batch (a broadcast), so that the ranks
+    attack one global batch even where a threaded loader's draws depend
+    on thread timing (`ROADMAP.md` §3); across hosts the loader's batch
+    is this host's shard, and every rank of the host takes its first
+    rank's."""
     for pts, labels in batches:
         pts = torch.as_tensor(pts, dtype=torch.float32).to(device)
         labels = torch.as_tensor(labels).to(device).long()
         if group is not None:
-            pts, labels = comm.broadcast(pts, group), comm.broadcast(
-                labels, group)
+            pts, labels = put_batch(pts, group), put_batch(labels, group)
         yield pts, labels

@@ -1,5 +1,7 @@
-"""Victim models (PointNet, DGCNN, PointNet++ (SSG), PCT, PointConv and
-GeoA3's PointNet are ported so far) and AdvPC's autoencoder."""
+"""Victim models (PointNet, DGCNN, PointNet++, PCT, PointConv and GeoA3's
+PointNet) and AdvPC's autoencoder: every model of the JAX package. The
+registry maps a victim's name to its `nn.Module` class; `register` adds
+one."""
 
 import sys
 from typing import Dict, List, Type
@@ -22,6 +24,12 @@ _REGISTRY: Dict[str, Type[nn.Module]] = {"pointnet": PointNet,
                                          "geoa3_pointnet": GeoA3PointNet}
 
 
+def register(name: str, module_class: Type[nn.Module]) -> None:
+    """Register ``module_class`` as the victim ``name`` (JAX `register`,
+    which takes the family's ``(init, apply)`` pair)."""
+    _REGISTRY[name] = module_class
+
+
 def get_model(name: str) -> Type[nn.Module]:
     """The model class registered under ``name``."""
     if name not in _REGISTRY:
@@ -31,7 +39,7 @@ def get_model(name: str) -> Type[nn.Module]:
 
 
 def names() -> List[str]:
-    """The registered victims' names, sorted."""
+    """The registered victims' names, sorted (JAX `available`)."""
     return sorted(_REGISTRY)
 
 

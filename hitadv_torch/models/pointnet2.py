@@ -1,4 +1,5 @@
-"""PointNet++ SSG classifier.
+"""PointNet++: the SSG classifier, and the MSG set abstraction and
+feature propagation stages.
 
 Port of `hitadv_tpu/models/pointnet2.py` (reference
 `model/pointnet2_cls_ssg.py` + `model/pointnet2_utils.py:162-203`): three
@@ -24,11 +25,20 @@ sampled stages take the reference's formulation instead (JAX :64-76):
 features, the two parts left unconcatenated for `linear_parts`), the MLP
 with batch-statistics BN over the whole group grid, and the neighbour
 max.
+
+`msg_init` / `msg_apply` (multi-scale grouping, reference
+`model/pointnet2_utils.py:206-263`) and `fp_init` / `fp_apply` (feature
+propagation, :266-316) are functional stages over a parameter tree, as
+in the JAX package (:150-216). MSG gathers, then runs the MLP, as JAX
+does: each branch's ball-query groups of xyz and features come through
+the row gather (features first, the reference's concat order) and the
+MLP takes the two parts unconcatenated. FP takes each dense point's
+three nearest sparse points through the kNN kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,6 +47,7 @@ from hitadv_torch import resolve_device
 from hitadv_torch.models.pointnet import _register, _tree_to
 from hitadv_torch.nn import functional as F
 from hitadv_torch.ops import geometry as G
+from hitadv_torch.parallel.shard import batch_draw
 
 
 class SAConfig(NamedTuple):
@@ -160,6 +171,85 @@ class PointNet2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Logits only: the reference's ``pointnet2.apply``."""
         return self.apply_full(x)[0]
+
+
+# ---------------------------------------------------------------------------
+# MSG set abstraction + feature propagation (pointnet2_ops module parity)
+# ---------------------------------------------------------------------------
+
+def msg_init(in_channel: int, mlp_list: Sequence[Sequence[int]], *,
+             generator: torch.Generator, device) -> Dict:
+    """A multi-scale-grouping stage's tree: ``branch{i}`` with
+    ``conv{j}``/``bn{j}``, each branch taking ``in_channel + 3`` channels
+    (JAX `msg_init`, :150-161)."""
+    return {f"branch{i}": F.mlp_init([in_channel + 3, *mlp],
+                                     generator=generator, device=device)
+            for i, mlp in enumerate(mlp_list)}
+
+
+def msg_apply(params: Mapping, npoint: int, radius_list: Sequence[float],
+              nsample_list: Sequence[int], xyz: torch.Tensor,
+              points: Optional[torch.Tensor], compute_dtype=None,
+              start: Union[int, torch.Tensor, torch.Generator] = 0):
+    """xyz ``[B, N, 3]``, points ``[B, N, D]`` or None -> (new_xyz
+    ``[B, npoint, 3]``, feats ``[B, npoint, sum of the branches' last
+    widths]``) (JAX `msg_apply`, :164-184).
+
+    FPS starts at ``start``: an index for every cloud, a ``[B]`` int32
+    tensor, or a generator, from which each cloud's start is drawn
+    uniformly (through `parallel.shard.batch_draw`, so a sharded run
+    draws what one process draws). The JAX package's ``key`` draws in
+    the same law, not the same values."""
+    B, N, _ = xyz.shape
+    if isinstance(start, torch.Generator):
+        gen = start
+        start = batch_draw(lambda s: torch.randint(
+            0, N, s, generator=gen, device=xyz.device, dtype=torch.int32),
+            (B,))
+    fps_idx = G.farthest_point_sample(xyz, npoint, start=start)
+    new_xyz = G.index_points(xyz, fps_idx)                   # [B, S, 3]
+    outs = []
+    for i, (radius, nsample) in enumerate(zip(radius_list, nsample_list)):
+        idx = G.query_ball_point(radius, nsample, xyz, new_xyz)
+        grouped_xyz = G.index_points(xyz, idx) - new_xyz[:, :, None, :]
+        # the reference's concat order: features, then xyz (:246-249)
+        grouped = (grouped_xyz if points is None
+                   else (G.index_points(points, idx), grouped_xyz))
+        h = F.mlp_apply(params[f"branch{i}"], grouped, compute_dtype)
+        outs.append(F.max_mid(h))                            # [B, S, C']
+    return new_xyz, torch.cat(outs, dim=-1)
+
+
+def fp_init(in_channel: int, mlp: Sequence[int], *,
+            generator: torch.Generator, device) -> Dict:
+    """A feature-propagation stage's tree, ``conv{j}``/``bn{j}`` (JAX
+    `fp_init`, :187-190)."""
+    return F.mlp_init([in_channel, *mlp], generator=generator, device=device)
+
+
+def fp_apply(params: Mapping, xyz1: torch.Tensor, xyz2: torch.Tensor,
+             points1: Optional[torch.Tensor], points2: torch.Tensor,
+             compute_dtype=None) -> torch.Tensor:
+    """Interpolate the sparse level's features (xyz2 ``[B, S, 3]``,
+    points2 ``[B, S, D2]``) onto the dense level's points (xyz1 ``[B, N,
+    3]``), the skip features points1 ``[B, N, D1]`` (or None) first, then
+    the shared MLP -> ``[B, N, C']`` (JAX `fp_apply`, :193-216).
+
+    Each dense point takes its three nearest sparse points by squared
+    distance, ascending, lowest index first among ties (the order of the
+    reference's ``top_k``), weighted by the reciprocal squared distance
+    (:296-299). A single sparse point (S == 1, a group-all level) is
+    broadcast."""
+    B, N, _ = xyz1.shape
+    if xyz2.shape[1] == 1:
+        interpolated = points2.expand(B, N, points2.shape[-1])
+    else:
+        dists, idx = G.knn_points(xyz1, xyz2, 3)
+        interpolated = G.three_interpolate(points2, idx,
+                                           G.interpolate_weights(dists))
+    if points1 is not None:
+        interpolated = (points1, interpolated)   # `linear_parts` order
+    return F.mlp_apply(params, interpolated, compute_dtype)
 
 
 def _sa_spec(torch_prefix: str, tree_prefix: str, n_layers: int):

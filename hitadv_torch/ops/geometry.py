@@ -16,6 +16,16 @@ field through its kernel pair). Clouds are ``[B, N, C]``.
 through the hand-written kernels of `ops/kernels.py` (the kernel on a
 CUDA tensor, its plain version on a CPU tensor), in both directions.
 The rest is plain PyTorch, as it is plain XLA in the reference.
+
+The helpers of PointNet++'s feature propagation and of the pointnet2_ops
+API (`three_nn`, `three_interpolate`, `interpolate_weights`,
+`group_points`, `knn_gather`) are compositions of those: the kNN and the
+row gather, in both directions.
+
+The contract checks of the reference (:53-72) raise on a cloud of the
+wrong rank or dtype and on float indices, where the reference raises,
+from shapes and dtypes alone (no device sync). They are always on: the
+reference's ``set_validation`` switch is not ported.
 """
 
 from __future__ import annotations
@@ -26,11 +36,38 @@ import torch
 
 from hitadv_torch.ops import kernels as K
 
+# ---------------------------------------------------------------------------
+# Input validation (reference :40-72, the CUDA lib's CHECK_* analogue)
+# ---------------------------------------------------------------------------
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``float32``), as the reference's
+    messages print it."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _check_cloud(x: torch.Tensor, name: str, rank: int = 3) -> None:
+    if x.dim() != rank:
+        raise ValueError(
+            f"{name}: expected rank-{rank} [B, N, C], got {tuple(x.shape)}")
+    if not x.dtype.is_floating_point:
+        raise TypeError(
+            f"{name}: expected float dtype, got {_dtype_name(x.dtype)}")
+
+
+def _check_idx(idx: torch.Tensor, name: str) -> None:
+    if idx.dtype.is_floating_point or idx.dtype.is_complex \
+            or idx.dtype == torch.bool:
+        raise TypeError(
+            f"{name}: expected int dtype, got {_dtype_name(idx.dtype)}")
+
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """``[B, N, C], [B, M, C] -> [B, N, M]`` squared distances,
     ``|s|^2 - 2 s.d + |d|^2`` with a full-f32 product (reference :75-98;
     TF32 is off package-wide)."""
+    _check_cloud(src, "square_distance:src")
+    _check_cloud(dst, "square_distance:dst")
     inner = torch.matmul(src, dst.transpose(-1, -2))
     s2 = torch.sum(src * src, dim=-1, keepdim=True)          # [B, N, 1]
     d2 = torch.sum(dst * dst, dim=-1, keepdim=True)          # [B, M, 1]
@@ -66,10 +103,18 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``points[b, idx[b, ...], :]`` for idx ``[B, S]`` or ``[B, S, K]``
     -> ``[B, *idx.shape[1:], C]`` (reference :110-136), through the
     gather kernel on CUDA."""
+    _check_cloud(points, "index_points:points")
+    _check_idx(idx, "index_points:idx")
     B, _, C = points.shape
     out = _GatherRows.apply(points.contiguous(),
                             idx.reshape(B, -1).contiguous())
     return out.reshape(*idx.shape, C)
+
+
+def knn_gather(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """pytorch3d's ``knn_gather``: ``[B, N, C], [B, S, K] -> [B, S, K, C]``
+    (reference :291-301), `index_points`."""
+    return index_points(points, idx)
 
 
 class _GatherGroup(torch.autograd.Function):
@@ -93,6 +138,8 @@ def gather_group_nm(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Grouped gather, neighbours-major: ``out[b, j, s, :] = points[b,
     idx[b, s, j], :]`` for idx ``[B, S, ns]`` -> ``[B, ns, S, C]``
     (reference :139-165), so the neighbour reduction runs over axis 1."""
+    _check_cloud(points, "gather_group_nm:points")
+    _check_idx(idx, "gather_group_nm:idx")
     return _GatherGroup.apply(points.contiguous(), idx.contiguous())
 
 
@@ -176,6 +223,7 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     (reference :460-509). Each cloud starts at its entry of ``start``, a
     ``[B]`` int32 tensor (the attacks draw it uniformly), or every cloud
     at the index ``start``."""
+    _check_cloud(xyz, "farthest_point_sample:xyz")
     B, N, _ = xyz.shape
     if not torch.is_tensor(start):
         if not 0 <= start < N:
@@ -195,6 +243,8 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     ``[B, S, nsample]`` int32, ascending, padded with the first in-ball
     index, an empty ball clamped to N - 1 (reference :533-574). Outside
     autograd, as the reference's ``stop_gradient``."""
+    _check_cloud(xyz, "query_ball_point:xyz")
+    _check_cloud(new_xyz, "query_ball_point:new_xyz")
     with torch.no_grad():
         return K.ball_query(xyz.detach().float().contiguous(),
                             new_xyz.detach().float().contiguous(), radius,
@@ -262,6 +312,45 @@ def sample_and_group_knn(npoint: int, nsample: int, xyz: torch.Tensor,
         return new_xyz, (grouped_norm, new_points[:, :, None, :])
     tiled = new_points[:, :, None, :].expand_as(grouped_norm)
     return new_xyz, torch.cat([grouped_norm, tiled], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# three_nn / three_interpolate (PointNet++ feature propagation) and the
+# pointnet2_ops grouping
+# ---------------------------------------------------------------------------
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3 nearest known points of each unknown point: (dists ``[B, N,
+    3]``, idx ``[B, N, 3]`` int32), the distances Euclidean, not squared,
+    as the CUDA ``three_nn`` returns them (reference :692-706), through
+    the kNN kernel. At a distance of 0 the square root's derivative is
+    infinite, as in the reference."""
+    res = knn_points(unknown, known, 3)
+    return torch.sqrt(torch.clamp_min(res.dists, 0.0)), res.idx
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """``sum_j points[b, idx[b, n, j]] * weight[b, n, j]``: ``[B, M, C],
+    [B, N, 3], [B, N, 3] -> [B, N, C]`` (reference :709-724). The rows
+    come through the gather kernel, whose backward is the row scatter."""
+    gathered = index_points(points, idx)                     # [B, N, 3, C]
+    return torch.sum(gathered * weight[..., None], dim=2)
+
+
+def interpolate_weights(dists: torch.Tensor,
+                        eps: float = 1e-8) -> torch.Tensor:
+    """Inverse-distance weights ``recip / sum(recip)``, ``recip = 1 /
+    (dists + eps)`` (reference :727-735; FP passes squared distances)."""
+    recip = 1.0 / (dists + eps)
+    return recip / torch.sum(recip, dim=-1, keepdim=True)
+
+
+def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """pointnet2_ops' grouping, channels-last: ``[B, N, C], [B, S, ns] ->
+    [B, S, ns, C]`` (reference :742-749), `index_points`."""
+    return index_points(points, idx)
 
 
 # ---------------------------------------------------------------------------

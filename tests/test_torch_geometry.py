@@ -406,3 +406,138 @@ def test_gaussian_blend_fused_values_and_all_four_grads(B, Cn, N):
     num, deno = G.gaussian_blend_fused(*leaves)
     (num.sum() + deno.sum()).backward()
     assert leaves[3].grad is not None and leaves[0].grad is None
+
+
+def _unknown_known(seed, B=2, N=100, M=30):
+    """Dense and sparse clouds apart from each other: no point of one is a
+    point of the other, so no 3-NN distance is 0."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, N, 3).astype(np.float32),
+            rng.randn(B, M, 3).astype(np.float32))
+
+
+def test_three_nn_and_interpolate_weights():
+    """`three_nn`: the three nearest known points, Euclidean distances,
+    indices equal to JAX's first; `interpolate_weights` on the same
+    distances."""
+    unknown, known = _unknown_known(40)
+    jd, jidx = JG.three_nn(jnp.asarray(unknown), jnp.asarray(known))
+    d, idx = G.three_nn(_t(unknown), _t(known))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert idx.dtype == torch.int32 and d.shape == (2, 100, 3)
+    # the JAX XLA path takes the matmul distance form, the port the
+    # elementwise one: f32 rounding apart
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-5)
+    sq = np.asarray(jd) ** 2
+    np.testing.assert_allclose(
+        G.interpolate_weights(_t(sq)).numpy(),
+        np.asarray(JG.interpolate_weights(jnp.asarray(sq))), rtol=1e-6,
+        atol=1e-7)
+
+
+def test_three_interpolate_value_and_grads():
+    """`three_interpolate` against JAX on the same indices and weights:
+    the value, and the gradients to the known features (the row scatter)
+    and to the weights."""
+    unknown, known = _unknown_known(41)
+    rng = np.random.RandomState(42)
+    feats = rng.randn(2, 30, 7).astype(np.float32)
+    g = rng.randn(2, 100, 7).astype(np.float32)
+    _, jidx = JG.three_nn(jnp.asarray(unknown), jnp.asarray(known))
+    _, idx = G.three_nn(_t(unknown), _t(known))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    weight = rng.rand(2, 100, 3).astype(np.float32)
+
+    def jloss(p, w):
+        out = JG.three_interpolate(p, jidx, w)
+        return jnp.sum(out * g), out
+
+    (_, jout), (jgp, jgw) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jnp.asarray(feats),
+                                              jnp.asarray(weight))
+    pt, wt = _t(feats, grad=True), _t(weight, grad=True)
+    out = G.three_interpolate(pt, idx, wt)
+    (out * _t(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(pt.grad.numpy(), np.asarray(jgp), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jgw), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["group_points", "knn_gather"])
+def test_group_points_and_knn_gather(name):
+    """pointnet2_ops' `group_points` and pytorch3d's `knn_gather`: the
+    value and the gradient to the points against JAX's."""
+    x = _cloud(43, 2, 90, 5)
+    idx = np.random.RandomState(44).randint(0, 90, (2, 20, 6)).astype(
+        np.int32)
+    wgt = np.random.RandomState(45).randn(2, 20, 6, 5).astype(np.float32)
+    jfn, fn = getattr(JG, name), getattr(G, name)
+    want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(idx)))
+    want_g = np.asarray(jax.grad(lambda p: jnp.sum(
+        jfn(p, jnp.asarray(idx)) * wgt))(jnp.asarray(x)))
+    xt = _t(x, grad=True)
+    got = fn(xt, _t(idx))
+    assert got.shape == (2, 20, 6, 5)
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    (got * _t(wgt)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want_g, rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_ops_package_reexports_the_geometry_api():
+    """`hitadv_torch.ops` exports the JAX package's geometry names but for
+    its Pallas backend switch and its validation switch, each the port's
+    function."""
+    import hitadv_tpu.ops as JO
+    import hitadv_torch.ops as O
+
+    want = {n for n in dir(JO) if not n.startswith("_")} - {
+        "set_backend", "get_backend", "set_validation", "geometry",
+        "pallas_kernels"}
+    got = {n for n in dir(O) if not n.startswith("_")}
+    assert want <= got
+    for n in want:
+        assert getattr(O, n) is getattr(G, n)
+
+
+def _bad_inputs():
+    """(geometry function name, arguments as numpy arrays) that break the
+    contract checks, one per check of each function."""
+    f32 = np.zeros((2, 8, 3), np.float32)
+    i32 = np.zeros((2, 8, 3), np.int32)
+    idx = np.zeros((2, 4), np.int32)
+    return [
+        ("square_distance", (f32[0], f32)),
+        ("square_distance", (f32, i32)),
+        ("index_points", (f32[0], idx)),
+        ("index_points", (i32, idx)),
+        ("index_points", (f32, idx.astype(np.float32))),
+        ("gather_group_nm", (i32, idx[..., None])),
+        ("gather_group_nm", (f32, idx[..., None].astype(np.float32))),
+        ("farthest_point_sample", (f32[0], 4)),
+        ("farthest_point_sample", (i32, 4)),
+        ("query_ball_point", (0.2, 4, f32[0], f32)),
+        ("query_ball_point", (0.2, 4, f32, i32)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(_bad_inputs())))
+def test_contract_checks_raise_as_jax(case):
+    """A cloud of the wrong rank raises `ValueError`, a cloud of an int
+    dtype or float indices `TypeError`, with JAX's message."""
+    name, args = _bad_inputs()[case]
+
+    def call(mod, conv):
+        with pytest.raises((ValueError, TypeError)) as err:
+            getattr(mod, name)(*[conv(a) if isinstance(a, np.ndarray) else a
+                                 for a in args])
+        return err
+
+    want = call(JG, jnp.asarray)
+    got = call(G, torch.from_numpy)
+    assert got.type is want.type
+    assert str(got.value) == str(want.value)
