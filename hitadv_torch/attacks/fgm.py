@@ -12,6 +12,11 @@ The random starts (the 1e-7 Gaussian of the iterative attacks, the
 uniform start of PGD and FGSM-RS) come from the generator passed to the
 attack, or are pinned by ``init_overrides`` so that a run can be held
 against the JAX package's under the same draws.
+
+With spans on (`utils.profiling`) the iterative attacks record
+``attack.prepare`` around their start draws and ``attack.iteration``
+around each step, counting ``attack.iterations``; every attack records
+``attack.finalize`` around its final prediction.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from hitadv_torch import resolve_device
 from hitadv_torch.attacks.base import AttackResult, Draws
 from hitadv_torch.losses import clip_points_linf
 from hitadv_torch.parallel.shard import batch_draw, batch_mean
+from hitadv_torch.utils import profiling as P
 
 
 @dataclass(frozen=True)
@@ -60,9 +66,10 @@ def _l2_normalised(g: torch.Tensor) -> torch.Tensor:
 
 def _finalize(logits_fn: Callable, pc: torch.Tensor,
               labels: torch.Tensor) -> AttackResult:
-    with torch.no_grad():
+    with P.span("attack.finalize"), torch.no_grad():
         pred = torch.argmax(logits_fn(pc), dim=-1)
-    return AttackResult(adv_points=pc, success=pred != labels, pred=pred)
+        success = pred != labels
+    return AttackResult(adv_points=pc, success=success, pred=pred)
 
 
 def _uniform_start(draws: Draws, shape, budget: float, generator):
@@ -118,11 +125,13 @@ def _iterate(logits_fn, adv_fn, cfg: FGMConfig, normalize_l2: bool,
     """The IFGSM / IFGM-L2 loop from ``pc``, clipped around ``ori``
     (reference `FGM/FGSM.py:106-177`)."""
     for _ in range(cfg.num_iter):
-        g = _grad(logits_fn, adv_fn, pc, labels)
-        step = (cfg.step * _l2_normalised(g) if normalize_l2
-                else cfg.step * torch.sign(g))
-        pc = torch.clamp(clip_points_linf(pc + step, ori, cfg.budget),
-                         -1.0, 1.0)
+        with P.span("attack.iteration"):
+            g = _grad(logits_fn, adv_fn, pc, labels)
+            step = (cfg.step * _l2_normalised(g) if normalize_l2
+                    else cfg.step * torch.sign(g))
+            pc = torch.clamp(clip_points_linf(pc + step, ori, cfg.budget),
+                             -1.0, 1.0)
+        P.count("attack.iterations")
     return _finalize(logits_fn, pc, labels)
 
 
@@ -133,7 +142,8 @@ def make_ifgsm(logits_fn: Callable, adv_fn: Callable,
     start (reference `FGM/FGSM.py:106-177`). ``init_overrides``:
     ``{"noise": [B, N, 3]}``."""
     def run(ori, labels, draws, generator):
-        pc0 = ori + draws.noise(ori.shape, generator)
+        with P.span("attack.prepare"):
+            pc0 = ori + draws.noise(ori.shape, generator)
         return _iterate(logits_fn, adv_fn, cfg, False, pc0, pc0, labels)
     return _maker(run, ("noise",), init_overrides, device)
 
@@ -144,7 +154,8 @@ def make_ifgm_l2(logits_fn: Callable, adv_fn: Callable,
     """Iterative L2 FGM (reference `FGM/FGM_l2.py:110-189`), as
     `make_ifgsm` with L2-normalised steps."""
     def run(ori, labels, draws, generator):
-        pc0 = ori + draws.noise(ori.shape, generator)
+        with P.span("attack.prepare"):
+            pc0 = ori + draws.noise(ori.shape, generator)
         return _iterate(logits_fn, adv_fn, cfg, True, pc0, pc0, labels)
     return _maker(run, ("noise",), init_overrides, device)
 
@@ -157,8 +168,10 @@ def make_pgd(logits_fn: Callable, adv_fn: Callable,
     around that jittered start, not the clean cloud. ``init_overrides``:
     ``{"start": [B, N, 3], "noise": [B, N, 3]}``."""
     def run(ori, labels, draws, generator):
-        init = ori + _uniform_start(draws, ori.shape, cfg.budget, generator)
-        pc0 = init + draws.noise(ori.shape, generator)
+        with P.span("attack.prepare"):
+            init = ori + _uniform_start(draws, ori.shape, cfg.budget,
+                                        generator)
+            pc0 = init + draws.noise(ori.shape, generator)
         return _iterate(logits_fn, adv_fn, cfg, False, pc0, pc0, labels)
     return _maker(run, ("start", "noise"), init_overrides, device)
 
@@ -171,15 +184,18 @@ def make_mifgsm(logits_fn: Callable, adv_fn: Callable,
     of the L2-normalised momentum, clipped around the 1e-7 Gaussian
     start. ``init_overrides``: ``{"noise": [B, N, 3]}``."""
     def run(ori, labels, draws, generator):
-        pc0 = ori + draws.noise(ori.shape, generator)
-        pc, m = pc0, torch.zeros_like(pc0)
+        with P.span("attack.prepare"):
+            pc0 = ori + draws.noise(ori.shape, generator)
+            pc, m = pc0, torch.zeros_like(pc0)
         for _ in range(cfg.num_iter):
-            g = _grad(logits_fn, adv_fn, pc, labels)
-            l1 = torch.sum(torch.abs(g), dim=(1, 2))
-            m = cfg.mu * m + g / (l1[:, None, None] + 1e-9)
-            direction = torch.sign(_l2_normalised(m))
-            pc = torch.clamp(clip_points_linf(pc + cfg.step * direction, pc0,
-                                              cfg.budget), -1.0, 1.0)
+            with P.span("attack.iteration"):
+                g = _grad(logits_fn, adv_fn, pc, labels)
+                l1 = torch.sum(torch.abs(g), dim=(1, 2))
+                m = cfg.mu * m + g / (l1[:, None, None] + 1e-9)
+                direction = torch.sign(_l2_normalised(m))
+                pc = torch.clamp(clip_points_linf(pc + cfg.step * direction,
+                                                  pc0, cfg.budget), -1.0, 1.0)
+            P.count("attack.iterations")
         return _finalize(logits_fn, pc, labels)
     return _maker(run, ("noise",), init_overrides, device)
 

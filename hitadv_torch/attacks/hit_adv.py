@@ -17,7 +17,11 @@ surface against the reference (`ShapeAttack/HiT_ADV.py:15-287`):
 
 The reference's scans are Python loops here. Inside them nothing waits
 for the device: no ``.item()``, no ``.cpu()``, no branch on a tensor; the
-best-so-far bookkeeping is ``torch.where`` on device tensors.
+best-so-far bookkeeping is ``torch.where`` on device tensors. With spans
+on (`utils.profiling`) an attack records ``attack.prepare``, each
+``attack.binary_step`` around its ``attack.iteration`` spans, and
+``attack.finalize``, and counts ``attack.iterations`` and
+``attack.binary_steps``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from hitadv_torch.parallel.shard import (
     batch_mean,
     batch_sum,
 )
+from hitadv_torch.utils import profiling as P
 
 
 @dataclass(frozen=True)
@@ -292,45 +297,52 @@ def make_hit_adv(logits_fn: Callable, adv_fn: Callable,
         points = torch.as_tensor(points, dtype=torch.float32).to(dev)
         labels = torch.as_tensor(labels).to(dev).long()
         B = points.shape[0]
-        ori, central_points, central_kappa_std = prepare_centrals(
-            logits_fn, cfg, points, labels,
-            generator=None if overrides is not None else generator)
-        inner_iter = make_inner_iter(logits_fn, adv_fn, cfg, ori, labels,
-                                     central_points, central_kappa_std,
-                                     blend)
+        with P.span("attack.prepare"):
+            ori, central_points, central_kappa_std = prepare_centrals(
+                logits_fn, cfg, points, labels,
+                generator=None if overrides is not None else generator)
+            inner_iter = make_inner_iter(logits_fn, adv_fn, cfg, ori, labels,
+                                         central_points, central_kappa_std,
+                                         blend)
 
-        lower = torch.zeros(B, device=dev)
-        upper = torch.full((B,), cfg.max_weight, device=dev)
-        weight = torch.full((B,), cfg.init_weight, device=dev)
-        o_best = BestState.init(ori)
-        last = torch.zeros_like(ori)
+            lower = torch.zeros(B, device=dev)
+            upper = torch.full((B,), cfg.max_weight, device=dev)
+            weight = torch.full((B,), cfg.init_weight, device=dev)
+            o_best = BestState.init(ori)
+            last = torch.zeros_like(ori)
         for step in range(cfg.binary_step):
-            if overrides is not None:
-                pert0 = overrides["pert"][step]
-                delta0 = overrides["delta"][step]
-            else:
-                def uniform(shape):
-                    return torch.rand(shape, generator=generator,
-                                      device=dev)
-                pert0 = batch_draw(uniform, (B, Cn, 3)) * cfg.budget
-                delta0 = cfg.min_sigm + batch_draw(uniform, (B, Cn)) * (
-                    cfg.max_sigm - cfg.min_sigm)
-            s = InnerState(pert=pert0, delta=delta0, opt_p=adam_init(pert0),
-                           opt_d=adam_init(delta0), weight=weight,
-                           best=BestState.init(ori), o_best=o_best,
-                           last=last)
-            for _ in range(cfg.num_iter):
-                s = inner_iter(s)
-            best, o_best, last = s.best, s.o_best, s.last
-            found = ((best.score != labels) & (best.score != -1)
-                     & (best.dist <= o_best.dist))
-            lower, upper, weight = binary_search_update(found, lower, upper,
-                                                        weight)
+            with P.span("attack.binary_step"):
+                if overrides is not None:
+                    pert0 = overrides["pert"][step]
+                    delta0 = overrides["delta"][step]
+                else:
+                    def uniform(shape):
+                        return torch.rand(shape, generator=generator,
+                                          device=dev)
+                    pert0 = batch_draw(uniform, (B, Cn, 3)) * cfg.budget
+                    delta0 = cfg.min_sigm + batch_draw(uniform, (B, Cn)) * (
+                        cfg.max_sigm - cfg.min_sigm)
+                s = InnerState(pert=pert0, delta=delta0,
+                               opt_p=adam_init(pert0),
+                               opt_d=adam_init(delta0), weight=weight,
+                               best=BestState.init(ori), o_best=o_best,
+                               last=last)
+                for _ in range(cfg.num_iter):
+                    with P.span("attack.iteration"):
+                        s = inner_iter(s)
+                    P.count("attack.iterations")
+                best, o_best, last = s.best, s.o_best, s.last
+                found = ((best.score != labels) & (best.score != -1)
+                         & (best.dist <= o_best.dist))
+                lower, upper, weight = binary_search_update(found, lower,
+                                                            upper, weight)
+            P.count("attack.binary_steps")
 
-        success = lower > 0.0
-        adv_final = torch.where(success[:, None, None], o_best.adv, last)
-        with torch.no_grad():
-            pred = torch.argmax(logits_fn(adv_final), dim=-1)
+        with P.span("attack.finalize"):
+            success = lower > 0.0
+            adv_final = torch.where(success[:, None, None], o_best.adv, last)
+            with torch.no_grad():
+                pred = torch.argmax(logits_fn(adv_final), dim=-1)
         return AttackResult(adv_points=adv_final, success=success,
                             pred=pred)
 

@@ -36,7 +36,10 @@ runs:
     shards CW-Perturb's Chamfer distance over a D-rank ring
     (`parallel.ring_chamfer`). More ranks than CUDA devices raise (the
     JAX `eval` takes the devices it finds). Called inside an initialised
-    process group of the right size, `main` runs as this rank of it.
+    process group of the right size, `main` runs as this rank of it;
+  * ``--spans PATH`` turns on the evaluation's spans and counters
+    (`utils.profiling`) and writes their summary to ``PATH`` as JSON
+    (rank 0), as ``--resume PATH`` keeps a sweep's progress.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import json
 import os
 import sys
 from typing import Callable, Optional, Tuple
@@ -398,11 +402,14 @@ def build_batches(cfg: EvalConfig):
 
 def parse_args(argv=None) -> Tuple[EvalConfig, argparse.Namespace]:
     """The command line's `EvalConfig` and its parsed arguments (the
-    config's flags and ``--resume``)."""
+    config's flags, ``--resume`` and ``--spans``)."""
     parser = argparse.ArgumentParser("hitadv_torch eval")
     add_config_flags(parser)
     parser.add_argument("--resume", default=None,
                         help="progress file for resumable sweeps")
+    parser.add_argument("--spans", default=None,
+                        help="record spans and counters and write their "
+                        "summary (utils.profiling.summary) to this JSON file")
     args = parser.parse_args(argv)
     return config_from_args(args), args
 
@@ -431,7 +438,7 @@ def run(cfg: EvalConfig, args: argparse.Namespace) -> dict:
     """The evaluation of ``cfg`` in this process: alone, or as a rank of
     the initialised process group when the flags ask for more than one
     (`mesh_size`), every rank taking rank 0's batches; only rank 0
-    prints and writes the log and ``--resume`` files."""
+    prints and writes the log, ``--resume`` and ``--spans`` files."""
     import torch.distributed as dist
 
     from hitadv_torch.data import device_put_batches
@@ -442,6 +449,7 @@ def run(cfg: EvalConfig, args: argparse.Namespace) -> dict:
         shard_attack,
     )
     from hitadv_torch.utils import EvalProgress
+    from hitadv_torch.utils import profiling
 
     dev = resolve_device(cfg.device)
     n, group = mesh_size(cfg), None
@@ -473,9 +481,21 @@ def run(cfg: EvalConfig, args: argparse.Namespace) -> dict:
     batches = device_put_batches(batches, dev, group)
     progress = (EvalProgress(args.resume, write=lead) if args.resume
                 else None)
-    metrics = eval_asr(eval_logits_fn, attack, batches, seed=cfg.seed,
-                       uniform_k=cfg.k, log_dir=cfg.log_dir if lead else None,
-                       progress=progress, device=dev)
+    if args.spans:
+        profiling.reset()
+        profiling.enable(dev)
+    try:
+        metrics = eval_asr(eval_logits_fn, attack, batches, seed=cfg.seed,
+                           uniform_k=cfg.k,
+                           log_dir=cfg.log_dir if lead else None,
+                           progress=progress, device=dev)
+    finally:
+        if args.spans:
+            profiling.disable()
+    if args.spans and lead:
+        profiling.collect()
+        with open(args.spans, "w") as f:
+            json.dump(profiling.summary(), f, indent=1)
     if lead:
         print({k: round(float(v), 6) for k, v in metrics.items()})
     return metrics

@@ -6,6 +6,11 @@ Per batch: run the attack, then, on the device and outside autograd, the
 kNN outlier distance (k=4), the disk uniformity, the curvature-std
 distance (k=4) of the adversarial clouds and the clean and adversarial
 predictions. The host reads one small vector of scalars per batch.
+
+With spans on (`utils.profiling`), each batch records ``eval.batch``
+around ``eval.copy``, ``eval.attack``, ``eval.metrics``, ``eval.judge``
+and ``eval.read``, and counts ``eval.batches`` and ``eval.examples``; its
+spans' device times are resolved after the read, which has waited.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 
 from hitadv_torch import losses as L
 from hitadv_torch import resolve_device
+from hitadv_torch.utils import profiling as P
 from hitadv_torch.utils.logging import timestamped_logger
 
 
@@ -27,17 +33,20 @@ def _batch_metrics(logits_fn: Callable, ori_xyz: torch.Tensor,
     denominator, adversarial correct]`` of one batch as an f64 vector on
     the device (reference `_batch_metrics`)."""
     with torch.no_grad():
-        knn_d = torch.mean(L.knn_dist(adv_xyz, k=4))
-        uni_d = L.uniform_loss(adv_xyz, k=uniform_k)
-        if adv_xyz.shape[1] == ori_xyz.shape[1]:
-            curv_d = torch.mean(L.curv_std_dist(ori_xyz, adv_xyz, ori_normal,
-                                                k=4))
-        else:
-            # attacks that drop or add points: CurvStdDist is undefined across
-            # clouds of different sizes, so it is NaN, as in the reference
-            curv_d = torch.full((), float("nan"), device=adv_xyz.device)
-        mask_ori = torch.argmax(logits_fn(ori_xyz), dim=-1) == labels
-        mask_adv = torch.argmax(logits_fn(adv_xyz), dim=-1) == labels
+        with P.span("eval.metrics"):
+            knn_d = torch.mean(L.knn_dist(adv_xyz, k=4))
+            uni_d = L.uniform_loss(adv_xyz, k=uniform_k)
+            if adv_xyz.shape[1] == ori_xyz.shape[1]:
+                curv_d = torch.mean(L.curv_std_dist(ori_xyz, adv_xyz,
+                                                    ori_normal, k=4))
+            else:
+                # attacks that drop or add points: CurvStdDist is undefined
+                # across clouds of different sizes, so it is NaN, as in the
+                # reference
+                curv_d = torch.full((), float("nan"), device=adv_xyz.device)
+        with P.span("eval.judge"):
+            mask_ori = torch.argmax(logits_fn(ori_xyz), dim=-1) == labels
+            mask_adv = torch.argmax(logits_fn(adv_xyz), dim=-1) == labels
         at_denom = torch.sum(mask_ori)
         at_num = at_denom - torch.sum(mask_ori & mask_adv)
         return torch.stack([t.double() for t in (
@@ -88,33 +97,41 @@ def eval_asr(logits_fn: Callable, attack_fn: Callable,
     for batch_index, (points, labels) in enumerate(batches):
         if batch_index < skip_until:
             continue
-        points = torch.as_tensor(points, dtype=torch.float32).to(dev)
-        labels = torch.as_tensor(labels).to(dev).long()
-        gen = torch.Generator(device=dev).manual_seed(
-            batch_seed(seed, batch_index))
-        result = attack_fn(points, labels, gen)
+        with P.span("eval.batch", batch=batch_index):
+            with P.span("eval.copy"):
+                points = torch.as_tensor(points, dtype=torch.float32).to(dev)
+                labels = torch.as_tensor(labels).to(dev).long()
+                gen = torch.Generator(device=dev).manual_seed(
+                    batch_seed(seed, batch_index))
+            with P.span("eval.attack"):
+                result = attack_fn(points, labels, gen)
 
-        ori_xyz = points[..., :3].contiguous()
-        ori_normal = (points[..., 3:6] if points.shape[-1] >= 6
-                      else torch.zeros_like(ori_xyz))
-        vals = _batch_metrics(logits_fn, ori_xyz, result.adv_points,
-                              ori_normal, labels, uniform_k)
-        knn_d, uni_d, curv_d, num, denom, correct, succ = torch.cat(
-            [vals, result.success.sum().double()[None]]).tolist()
+            ori_xyz = points[..., :3].contiguous()
+            ori_normal = (points[..., 3:6] if points.shape[-1] >= 6
+                          else torch.zeros_like(ori_xyz))
+            vals = _batch_metrics(logits_fn, ori_xyz, result.adv_points,
+                                  ori_normal, labels, uniform_k)
+            with P.span("eval.read"):
+                knn_d, uni_d, curv_d, num, denom, correct, succ = torch.cat(
+                    [vals, result.success.sum().double()[None]]).tolist()
 
-        acc["knn_sum"] += knn_d
-        acc["uni_sum"] += uni_d
-        acc["curv_sum"] += curv_d
-        acc["at_num"] += num
-        acc["at_denom"] += denom
-        acc["adv_correct"] += correct
-        acc["total"] += float(labels.shape[0])
-        acc["n_batches"] += 1
-        if verbose and logger:
-            logger.info(f"batch {acc['n_batches']}: attack success "
-                        f"{int(succ)}/{labels.shape[0]}")
-        if progress is not None:
-            progress.update(batch_index, acc)
+            acc["knn_sum"] += knn_d
+            acc["uni_sum"] += uni_d
+            acc["curv_sum"] += curv_d
+            acc["at_num"] += num
+            acc["at_denom"] += denom
+            acc["adv_correct"] += correct
+            acc["total"] += float(labels.shape[0])
+            acc["n_batches"] += 1
+            P.count("eval.batches")
+            P.count("eval.examples", labels.shape[0])
+            if verbose and logger:
+                logger.info(f"batch {acc['n_batches']}: attack success "
+                            f"{int(succ)}/{labels.shape[0]}")
+            if progress is not None:
+                progress.update(batch_index, acc)
+        # the read above waited for the device: the batch's spans resolve
+        P.resolve()
 
     n_batches = max(int(acc["n_batches"]), 1)
     metrics = {

@@ -1,8 +1,9 @@
 """The port's remaining drivers and utilities against the JAX package's:
 `hitadv_torch.convert` (its CLI), `hitadv_torch.visual` and
-`hitadv_torch.utils` (`logging`, `training_aux`, `profiling`, `mesh_io`),
-file for file where they write files. The port runs on the CPU
-(``--device cpu``), where its kernels take their plain versions.
+`hitadv_torch.utils` (`logging`, `training_aux`, `mesh_io`), file for
+file where they write files. The port runs on the CPU (``--device
+cpu``), where its kernels take their plain versions. `utils.profiling`,
+the port's span recorder, is tested in `test_torch_spans.py`.
 """
 
 import filecmp
@@ -23,7 +24,6 @@ from hitadv_tpu.models import pointnet as JPN
 from hitadv_tpu.ops import geometry as JG
 from hitadv_tpu.utils import logging as JL
 from hitadv_tpu.utils import mesh_io as JM
-from hitadv_tpu.utils import profiling as JP
 from hitadv_tpu.utils import training_aux as JA
 from hitadv_torch import convert as CV
 from hitadv_torch import visual as V
@@ -31,7 +31,6 @@ from hitadv_torch.attacks import aof as O
 from hitadv_torch.ops import geometry as G
 from hitadv_torch.utils import logging as TL
 from hitadv_torch.utils import mesh_io as TM
-from hitadv_torch.utils import profiling as TP
 from hitadv_torch.utils import training_aux as TA
 from test_torch_kernels import one_torch_thread  # noqa: F401
 
@@ -112,30 +111,6 @@ def test_recorders_write_what_jax_writes(tmp_path):
     for f in ("converge_iter.png", "loss_iter.png"):
         assert (tmp_path / "port" / f).exists() \
             == (tmp_path / "jax" / f).exists()
-
-
-# ---------------------------------------------------------------------------
-# utils.profiling
-# ---------------------------------------------------------------------------
-
-def test_phase_timer_and_device_timer(tmp_path):
-    jt, tt = JP.PhaseTimer(), TP.PhaseTimer()
-    for t in (jt, tt):
-        t.totals.update({"forward": 1.25, "backward": 2.5})
-    assert tt.summary() == jt.summary()
-    with tt.phase("clip", sync=True):
-        torch.ones(3).sum()
-    assert tt.totals["clip"] > 0
-    tt.reset()
-    assert tt.summary() == "total time: 0.00, "
-    with TP.device_timer("cpu") as out:
-        sum(range(1000))
-    assert out["ms"] > 0
-    with TP.trace(str(tmp_path / "tr")):
-        with TP.annotate("my_phase"):
-            torch.ones(8) @ torch.ones(8)
-    trace = (tmp_path / "tr" / "trace.json").read_text()
-    assert "my_phase" in trace
 
 
 # ---------------------------------------------------------------------------
